@@ -1,0 +1,433 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py            # from the repository root
+
+Phases:
+  1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
+  2. build: every kernel of csrc/ with nvcc for sm_90a, all in parallel;
+  3. kernels vs plain on the card, at the shapes the main path gives them:
+     K1 FAST score + NMS at the 8 ORB levels of a 480x640 frame, K2 FAST
+     score for rings 16/12/8, K3 streaming 2-NN Hamming at 2000 x 128000
+     with ties and ~10% invalid rows; all exact; device times by CUDA
+     events (kernel, plain version, one PyTorch library call where one
+     computes the same function) beside the bound;
+  4. main path: VisualOdometry.process_sequence on a seeded 480x640
+     synthetic sequence at bench_config5's engine config
+     (ORBConfig(n_features=2000), every other default, chunk=8), cold
+     then warm three times (frames/s is the median warm run, printed with
+     the range); launch counts are reset just before each warm run and
+     read just after it; ATE against ground truth must be < 5 % of the
+     path, with >= 10 keyframes and the state `tracking`;
+  5. profile: torch.profiler over 16 frames of steady tracking (device
+     busy share, kernels per frame, top kernels, top host operations).
+Prints a JSON line of main-path results, a JSON line of kernels, the
+card line, and last {"ok": true, "device": {...}}. Exits non-zero on any
+failure, and without a card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+
+# H100 SXM memory rate (NVIDIA data sheet, at a 700 W limit) and per-SM
+# issue rates of compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput), priced at the card's max SM clock
+HBM_BYTES_PER_S = 3.35e12
+FP32_ADD_PER_CLK_PER_SM = 128  # FADD; f32 min/max (FMNMX) issue no faster
+POPC_PER_CLK_PER_SM = 16  # 32-bit __popc
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def fast_score_ops(pattern: int = 16, arc: int = 9) -> int:
+    """Least f32 operations per pixel of the FAST score: `pattern` tap
+    differences, the circular window minimum (bright) and maximum (dark)
+    of length `arc` by doubling, the max (bright) and min (dark) over the
+    `pattern` starts, one negate and the final max."""
+    doublings = arc.bit_length() - 1 + bin(arc).count("1") - 1
+    return pattern + 2 * pattern * doublings + 2 * (pattern - 1) + 2
+
+
+def max_abs_err(*pairs) -> float:
+    """Largest |kernel - plain| over (kernel, plain) tensor pairs."""
+    return max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+
+
+def device_time_ms(fn, calls: int = 10, trials: int = 20) -> float:
+    """Median device time of one call of `fn`, by CUDA events around
+    `calls` back-to-back calls enqueued behind a device sleep (so the
+    events time the device work, not the host's enqueue)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sleep_cycles = int((enqueue_s * 2.0 + 2e-3) * 2e9)
+    out = []
+    for _ in range(trials):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        s.record()
+        for _ in range(calls):
+            fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e) / calls)
+    return statistics.median(out)
+
+
+# ------------------------------------------------------------ synthetic scene
+
+
+def make_sequence(n_frames: int = 120, h: int = 480, w: int = 640, seed: int = 7,
+                  device: str = "cuda"):
+    """Seeded splat renderer of tests/test_vo.py, widened to 480x640 and
+    densified: points on a smooth relief surface, the camera slides right
+    with slight forward motion and yaw. Returns (frames f32 [F,H,W],
+    centres [F,3], K)."""
+    import torch
+
+    from opencv_tpu_torch.core import imgproc
+    from opencv_tpu_torch.slam.vo import _np_rodrigues
+
+    f = 0.82 * w
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    rng = np.random.default_rng(seed)
+    n_pts = 12000
+    wx = rng.uniform(-6.0, 20.0, n_pts)
+    wy = rng.uniform(-4.5, 4.5, n_pts)
+    wz = (7.0 + 2.8 * np.sin(0.85 * wx) * np.cos(0.7 * wy)
+          + 1.5 * np.cos(1.3 * wx + 0.9 * wy) + 0.1 * wx)
+    world = np.stack([wx, wy, wz], axis=1).astype(np.float32)
+    inten = rng.uniform(60, 255, n_pts).astype(np.float32)
+    raw, centres = [], []
+    for i in range(n_frames):
+        c = np.array([0.12 * i, 0.0, 0.03 * i], np.float32)
+        rvec = np.array([0.0, np.deg2rad(0.15 * i), 0.0], np.float32)
+        R = _np_rodrigues(rvec)
+        pc = (world - c) @ R.T
+        z = pc[:, 2]
+        vis = z > 0.5
+        u = f * pc[:, 0] / np.where(vis, z, 1.0) + w / 2
+        v = f * pc[:, 1] / np.where(vis, z, 1.0) + h / 2
+        vis &= (u >= 2) & (u < w - 2) & (v >= 2) & (v < h - 2)
+        img = np.zeros((h, w), np.float32)
+        uf, vf = u[vis], v[vis]
+        u0 = np.floor(uf).astype(int)
+        v0 = np.floor(vf).astype(int)
+        au, av = uf - u0, vf - v0
+        ii = inten[vis]
+        np.add.at(img, (v0, u0), ii * (1 - au) * (1 - av))
+        np.add.at(img, (v0, u0 + 1), ii * au * (1 - av))
+        np.add.at(img, (v0 + 1, u0), ii * (1 - au) * av)
+        np.add.at(img, (v0 + 1, u0 + 1), ii * au * av)
+        raw.append(img)
+        centres.append(c)
+    blurred = imgproc.gaussian_blur(torch.from_numpy(np.stack(raw)).to(device), 5, 1.1)
+    frames = (blurred * 4.0).clamp(0, 255).cpu().numpy()
+    return frames, np.asarray(centres), K
+
+
+# ------------------------------------------------------------ phases
+
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi: no output"
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.split()
+    sm_hz = float(clock[0]) * 1e6 if clock and clock[0].isdigit() else 1.98e9  # data sheet
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[device] {card} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()} | {n_sm} SMs, "
+          f"max SM clock {sm_hz / 1e6:.0f} MHz", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return card, dict(fp32_add=FP32_ADD_PER_CLK_PER_SM * n_sm * sm_hz,
+                      popc=POPC_PER_CLK_PER_SM * n_sm * sm_hz)
+
+
+def phase_build():
+    from opencv_tpu_torch.ops.cuda import _build
+
+    t0 = time.perf_counter()
+    times = _build.build()
+    print(f"[build] {time.perf_counter() - t0:.2f} s wall; per source: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in times.items()), flush=True)
+    for name, log in _build.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
+
+
+def phase_kernels(frame0: np.ndarray, rates: dict) -> dict:
+    import torch
+
+    from opencv_tpu_torch.core import pyramid
+    from opencv_tpu_torch.ops.cuda import fast_kernel, knn
+
+    rows = {}
+    dev = torch.device("cuda")
+
+    # K1: FAST score + NMS at the 8 ORB level shapes of a 480x640 frame
+    pyr = pyramid.build_pyramid(torch.from_numpy(frame0).to(dev), 8, 1.2)
+    k_ms = p_ms = bytes_ = ops = err1 = 0.0
+    for lvl in pyr.levels:
+        s_k, n_k = fast_kernel.fast_corners_cuda(lvl, 20.0)
+        s_p, n_p = fast_kernel.fast_corners_plain(lvl, 20.0)
+        torch.cuda.synchronize()
+        err1 = max(err1, max_abs_err((s_k, s_p), (n_k, n_p)))
+        if not (torch.equal(s_k, s_p) and torch.equal(n_k, n_p)):
+            bad = (s_k != s_p).sum().item() + (n_k != n_p).sum().item()
+            fail(f"K1 differs from its plain version at {tuple(lvl.shape)}: {bad} values")
+        k_ms += device_time_ms(lambda: fast_kernel.fast_corners_cuda(lvl, 20.0))
+        p_ms += device_time_ms(lambda: fast_kernel.fast_corners_plain(lvl, 20.0), calls=3)
+        npx = lvl.numel()
+        bytes_ += npx * 4 * 3  # read the level, write score and nms
+        ops += npx * (fast_score_ops(16, 9) + 1 + 8)  # score, threshold, 8 NMS compares
+    rows["fast_corners"] = dict(
+        name="fast_corners (K1: FAST-16 arc-9 score + threshold + border + 3x3 NMS)",
+        route="cuda", source="opencv_tpu_torch/csrc/fast.cu",
+        replaces="opencv_tpu/ops/pallas/fast_kernel.py:92",
+        max_abs_err=err1, ms=k_ms, plain_ms=p_ms, library_ms=None,
+        bound_ms=max(bytes_ / HBM_BYTES_PER_S, ops / rates["fp32_add"]) * 1e3,
+        bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= ops / rates["fp32_add"] else "operations",
+        shapes=[tuple(l.shape) for l in pyr.levels],
+    )
+    print(f"[K1] exact at 8 levels; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms per frame "
+          f"(sum of levels)", flush=True)
+
+    # K2: score only, rings 16/12/8 and several arcs, at level 0
+    lvl0 = pyr.levels[0]
+    err2 = 0.0
+    for pattern, arc in ((16, 9), (16, 12), (12, 9), (12, 12), (8, 5), (8, 8)):
+        a = fast_kernel.fast_score_cuda(lvl0, arc, pattern)
+        b = fast_kernel.fast_score_plain(lvl0, arc, pattern)
+        torch.cuda.synchronize()
+        err2 = max(err2, max_abs_err((a, b)))
+        if not torch.equal(a, b):
+            fail(f"K2 differs from its plain version (pattern {pattern}, arc {arc}): "
+                 f"{(a != b).sum().item()} values")
+    k2_ms = device_time_ms(lambda: fast_kernel.fast_score_cuda(lvl0, 9, 16))
+    k2_pl = device_time_ms(lambda: fast_kernel.fast_score_plain(lvl0, 9, 16), calls=3)
+    npx = lvl0.numel()
+    b2, o2 = npx * 8, npx * fast_score_ops(16, 9)
+    rows["fast_score"] = dict(
+        name="fast_score (K2: FAST score only, rings 16/12/8)", route="cuda",
+        source="opencv_tpu_torch/csrc/fast.cu",
+        replaces="opencv_tpu/ops/pallas/fast_kernel.py:51",
+        max_abs_err=err2, ms=k2_ms, plain_ms=k2_pl, library_ms=None,
+        bound_ms=max(b2 / HBM_BYTES_PER_S, o2 / rates["fp32_add"]) * 1e3,
+        bound_by="bytes" if b2 / HBM_BYTES_PER_S >= o2 / rates["fp32_add"] else "operations",
+        shapes=[tuple(lvl0.shape)],
+    )
+    print(f"[K2] exact for rings 16/12/8; kernel {k2_ms:.4f} ms, plain {k2_pl:.4f} ms "
+          f"at 480x640", flush=True)
+
+    # K3: streaming 2-NN at the retrieval shape, with ties and invalid rows
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    nq, nt = 2000, 64 * 2000
+    lo, hi = -(2 ** 31), 2 ** 31
+    train = torch.randint(lo, hi, (nt, 8), generator=g, device=dev, dtype=torch.int64).to(torch.int32)
+    train[64000:66000] = train[0:2000]  # duplicate rows: exact ties across splits
+    query = torch.randint(lo, hi, (nq, 8), generator=g, device=dev, dtype=torch.int64).to(torch.int32)
+    query[:1000] = train[torch.arange(0, 2000, 2, device=dev)]  # near-exact matches
+    query[:1000, 0] ^= 1
+    valid = torch.rand(nt, generator=g, device=dev) > 0.1
+    d1k, d2k, i1k = knn.knn2_hamming_cuda(query, train, valid)
+    d1p, d2p, i1p = knn.knn2_hamming_plain(query, train, valid)
+    torch.cuda.synchronize()
+    err3 = max_abs_err((d1k, d1p), (d2k, d2p), (i1k, i1p))
+    for nm, a, b in (("d1", d1k, d1p), ("d2", d2k, d2p), ("i1", i1k, i1p)):
+        if not torch.equal(a, b):
+            fail(f"K3 {nm} differs from its plain version: {(a != b).sum().item()} queries")
+    n_ties = int((d1k == d2k).sum())
+    k3_ms = device_time_ms(lambda: knn.knn2_hamming_cuda(query, train, valid), calls=5)
+    k3_pl = device_time_ms(lambda: knn.knn2_hamming_plain(query, train, valid), calls=2, trials=20)
+    sq = knn.signed_descriptors(query).to(torch.bfloat16)
+    st = knn.signed_descriptors(train).to(torch.bfloat16)
+    big = torch.where(valid, 0.0, 1024.0).to(torch.bfloat16)
+
+    def library():
+        dist = (256.0 - sq @ st.T) * 0.5 + big
+        return torch.topk(dist, 2, dim=1, largest=False)
+
+    lib_ms = device_time_ms(library, calls=3)
+    n_valid = int(valid.sum())
+    b3 = (nq + nt) * 32 + nt + nq * 12
+    o3 = nq * n_valid * 8
+    rows["knn2_hamming"] = dict(
+        name="knn2_hamming (K3: streaming 2-NN Hamming, ratio test outside)", route="cuda",
+        source="opencv_tpu_torch/csrc/knn2_hamming.cu",
+        replaces="opencv_tpu/ops/pallas/knn.py:30",
+        max_abs_err=err3, ms=k3_ms, plain_ms=k3_pl, library_ms=lib_ms,
+        bound_ms=max(b3 / HBM_BYTES_PER_S, o3 / rates["popc"]) * 1e3,
+        bound_by="bytes" if b3 / HBM_BYTES_PER_S >= o3 / rates["popc"] else "operations",
+        shapes=[(nq, 8), (nt, 8)],
+    )
+    print(f"[K3] exact on d1/d2/i1 ({n_ties} queries with d1 == d2, {nt - n_valid} invalid "
+          f"rows); kernel {k3_ms:.4f} ms, plain {k3_pl:.4f} ms, bf16 matmul+topk "
+          f"{lib_ms:.4f} ms", flush=True)
+    del sq, st
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_main_path(frames, centres, K, warm_runs: int = 3) -> dict:
+    import torch
+
+    from opencv_tpu_torch.core.config import ORBConfig
+    from opencv_tpu_torch.ops import cuda as cuda_ops
+    from opencv_tpu_torch.slam.vo import VisualOdometry, VOConfig
+    from opencv_tpu_torch.utils.evaluate import ate_rmse
+
+    cfg = VOConfig(orb=ORBConfig(n_features=2000))
+    n = frames.shape[0]
+    t0 = time.perf_counter()
+    VisualOdometry(K, cfg, seed=0).process_sequence(frames, chunk=8)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+
+    warm_s, runs = [], []
+    for _ in range(warm_runs):
+        vo = VisualOdometry(K, cfg, seed=0)
+        cuda_ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traj = vo.process_sequence(frames, chunk=8)
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+        runs.append((vo, traj, dict(cuda_ops.launch_counts)))
+        for k in ("fast_corners", "knn2_hamming"):
+            if runs[-1][2][k] <= 0:
+                fail(f"kernel {k} was not launched on the main path")
+    vo, traj, counts = runs[0]
+    warm = statistics.median(warm_s)
+
+    if traj.shape != (n, 3) or not np.isfinite(traj).all():
+        fail(f"trajectory shape {traj.shape} or non-finite values")
+    path = float(np.linalg.norm(np.diff(centres, axis=0), axis=1).sum())
+    ate = ate_rmse(traj, centres, with_scale=True)
+    res = dict(frames=n, fps_warm=n / warm, fps_warm_runs=[n / t for t in warm_s],
+               warm_s=warm, cold_s=cold, ate=ate, path=path,
+               ate_pct=100 * ate / path, keyframes=len(vo.keyframes),
+               loop_closures=vo.loop_closures, relocalizations=vo.relocalizations,
+               state=vo.state, launches=counts)
+    print(f"[main] {n} frames 480x640: warm {warm:.3f} s ({n / warm:.2f} frames/s, median "
+          f"of {warm_runs} runs, range {n / max(warm_s):.2f} to {n / min(warm_s):.2f}), cold "
+          f"{cold:.3f} s; ATE {ate:.5f} = {100 * ate / path:.3f} % of path {path:.3f}; "
+          f"{len(vo.keyframes)} keyframes, {vo.loop_closures} loop closures, "
+          f"{vo.relocalizations} relocalizations; launches {counts}", flush=True)
+    if vo.state != "tracking":
+        fail(f"engine state {vo.state}")
+    if len(vo.keyframes) < 10:
+        fail(f"only {len(vo.keyframes)} keyframes: retrieval never ran")
+    if not ate < 0.05 * path:
+        fail(f"ATE {ate:.4f} >= 5% of path {path:.3f}")
+    return res
+
+
+def phase_profile(frames, K, warmup: int = 40, window: int = 16) -> None:
+    """Where the time goes in steady tracking: torch.profiler over frames
+    [warmup, warmup + window) of a fresh engine that has tracked the first
+    `warmup` frames. Prints the device's busy share of the window's wall
+    time (the sum of kernel times: no kernels overlap on one stream), the
+    top kernels by device time and the top host operations by their own
+    time. The profiler slows the host, so the busy share is a lower bound
+    of the unprofiled run's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from opencv_tpu_torch.core.config import ORBConfig
+    from opencv_tpu_torch.slam.vo import VisualOdometry, VOConfig
+
+    vo = VisualOdometry(K, VOConfig(orb=ORBConfig(n_features=2000)), seed=0)
+    vo.process_sequence(frames[:warmup], chunk=8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vo.process_sequence(frames[warmup: warmup + window], chunk=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    launches = sum(e.count for e in kernels)
+    print(f"[profile] frames {warmup}-{warmup + window}: wall {wall:.3f} s "
+          f"({window / wall:.2f} frames/s under the profiler), {launches} kernels "
+          f"({launches / window:.0f} per frame)", flush=True)
+    if busy <= 0:
+        print("[profile] no kernel time visible to torch.profiler: busy share not measured",
+              flush=True)
+    else:
+        print(f"[profile] device busy {busy:.3f} s = {100 * busy / wall:.1f} % of wall", flush=True)
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
+        print(f"[profile] kernel {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
+              f"{e.key[:100]}", flush=True)
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]:
+        print(f"[profile] host {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x  "
+              f"{e.key[:100]}", flush=True)
+
+
+def main():
+    card, rates = phase_device()
+    try:
+        import torch  # noqa: F401
+
+        from opencv_tpu_torch.ops import cuda  # noqa: F401
+    except ImportError as e:
+        fail(f"the port is not importable from {REPO}: {e}")
+    phase_build()
+    t0 = time.perf_counter()
+    frames, centres, K = make_sequence()
+    print(f"[scene] {frames.shape[0]} frames {frames.shape[1]}x{frames.shape[2]} rendered in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rows = phase_kernels(frames[0], rates)
+    main_res = phase_main_path(frames, centres, K)
+    phase_profile(frames, K)
+    n = main_res.pop("frames")
+    launches = main_res.pop("launches")
+    kernels = [dict(row, launches=launches[key], launches_per_frame=launches[key] / n,
+                    on_main_path=key != "fast_score") for key, row in rows.items()]
+    print(json.dumps({"main_path": dict(main_res, frames=n)}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    import torch
+
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
