@@ -5,23 +5,39 @@
 Phases:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: every kernel of csrc/ with nvcc for sm_90a, all in parallel;
-  3. kernels vs plain on the card, at the shapes the main path gives them:
+  3. kernels vs plain on the card, at the shapes the main paths give them:
      K1 FAST score + NMS at the 8 ORB levels of a 480x640 frame, K2 FAST
      score for rings 16/12/8, K3 streaming 2-NN Hamming at 2000 x 128000
-     with ties and ~10% invalid rows; all exact; device times by CUDA
-     events (kernel, plain version, one PyTorch library call where one
-     computes the same function) beside the bound;
-  4. main path: VisualOdometry.process_sequence on a seeded 480x640
-     synthetic sequence at bench_config5's engine config
-     (ORBConfig(n_features=2000), every other default, chunk=8), cold
-     then warm three times (frames/s is the median warm run, printed with
-     the range); launch counts are reset just before each warm run and
-     read just after it; ATE against ground truth must be < 5 % of the
-     path, with >= 10 keyframes and the state `tracking`;
-  5. profile: torch.profiler over 16 frames of steady tracking (device
-     busy share, kernels per frame, top kernels, top host operations).
-Prints a JSON line of main-path results, a JSON line of kernels, the
-card line, and last {"ok": true, "device": {...}}. Exits non-zero on any
+     with ties and ~10% invalid rows, K4 LK window sampling at its three
+     sites on the 480x640 level (templates C=3 win 21, patches C=1 win 48
+     at integer origins, polish C=1 win 21; N = 2000 and 512, with points
+     on every border, outside, far outside and non-finite), K5 edge-clamped
+     windows (win 21, N = 512, interior points); all exact; device times
+     by CUDA events (kernel, plain version, one PyTorch library call where
+     one computes the same function) beside the bound;
+  4. the three paths, each with the launch counts reset just before a
+     warm run and read just after it:
+     a. ORB VO: VisualOdometry.process_sequence on a seeded 480x640
+        synthetic sequence at bench_config5's engine config
+        (ORBConfig(n_features=2000), every other default, chunk=8), cold
+        then warm three times (frames/s is the median warm run, printed
+        with the range); ATE against ground truth must be < 5 % of the
+        path, with >= 10 keyframes and the state `tracking`;
+     b. LK: bench.py config 2 on 100 frames of the scene (GFTT 512 corners,
+        quality 0.01, min distance 7; LKConfig(win_size=21, n_levels=4);
+        build_flow_pyramid once per frame, calc_optical_flow_pyr_lk_pyr,
+        re-detection below 500 tracked), cold then warm three times;
+        checked against the same path on the CPU on 4 pairs (0.05 px,
+        >= 99 % equal status) and on frame 0 shifted by (5, 3) px
+        (every tracked corner 48 px inside within 0.35 px);
+     c. klt VO: VisualOdometry(tracker="klt", n_features=2000).process_
+        sequence over the 120 frames, cold then warm; ATE < 5 % of the
+        path, state `tracking`, frames tracked by LK > 0, K4 launched;
+  5. profile: torch.profiler over 16 frames of steady tracking of each
+     engine (device busy share, kernels per frame, top kernels, top host
+     operations).
+Prints a JSON line of path results, a JSON line of kernels, the card
+line, and last {"ok": true, "device": {...}}. Exits non-zero on any
 failure, and without a card.
 """
 
@@ -298,6 +314,138 @@ def phase_kernels(frame0: np.ndarray, rates: dict) -> dict:
           f"{lib_ms:.4f} ms", flush=True)
     del sq, st
     torch.cuda.empty_cache()
+    rows.update(phase_lk_kernels(lvl0, rates))
+    return rows
+
+
+def lk_points(n: int, h: int, w: int, win: int, seed: int, odd: bool = True) -> np.ndarray:
+    """n points on the level: subpixel interior points, then (odd=True)
+    every border, outside, far outside and non-finite case of
+    tests/test_pallas_lk_sample.py. odd=False keeps all points half a
+    window inside (K5's domain)."""
+    rng = np.random.default_rng(seed)
+    m = win // 2 + 1 if not odd else 0
+    pts = np.stack([rng.uniform(m, w - 1 - m, n), rng.uniform(m, h - 1 - m, n)], -1)
+    pts = pts.astype(np.float32)
+    if odd:
+        pts[:16] = [
+            [0.0, 0.0], [w - 1.0, h - 1.0], [0.3, 17.2], [w - 1.4, 30.1], [40.2, 0.7],
+            [39.9, h - 1.2], [-3.5, 12.0], [w + 4.0, h + 4.0], [-win / 2, -win / 2],
+            [-500.0, -500.0], [1e7, 12.0], [np.nan, 5.0], [5.0, np.inf], [-np.inf, 3.0],
+            [33.0, 44.0], [w - 1.0, 0.0],
+        ]
+    return pts
+
+
+def window_grid(pts, win: int, h: int, w: int):
+    """grid_sample grid [1, N*win, win, 2] of the win x win window
+    positions (align_corners=True: -1 and 1 are the outer pixel centres);
+    non-finite points moved far outside."""
+    import torch
+
+    p = torch.nan_to_num(pts, nan=-1e6, posinf=1e6, neginf=-1e6)
+    ar = torch.arange(win, device=pts.device, dtype=torch.float32) - float(win // 2)
+    x = (p[:, 0, None, None] + ar[None, None, :]).expand(-1, win, win)
+    y = (p[:, 1, None, None] + ar[None, :, None]).expand(-1, win, win)
+    g = torch.stack([2.0 * x / (w - 1) - 1.0, 2.0 * y / (h - 1) - 1.0], -1)
+    return g.reshape(1, -1, win, 2).contiguous()
+
+
+def phase_lk_kernels(lvl0, rates: dict) -> dict:
+    """K4 at its three sites on the 480x640 level and K5, exact against
+    their plain versions, timed beside grid_sample and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from opencv_tpu_torch.core import imgproc
+    from opencv_tpu_torch.ops.cuda import lk_sample
+
+    dev = lvl0.device
+    h, w = lvl0.shape
+    dx, dy = imgproc.scharr_derivatives(lvl0)
+    sites = (("templates", (lvl0, dx, dy), 21, False), ("patch", (lvl0,), 48, True),
+             ("polish", (lvl0,), 21, False))
+    per_n = {}
+    err4 = 0.0
+    for n in (2000, 512):
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+        for name, chans, win, integer in sites:
+            pts = lk_points(n, h, w, win, seed=n + win)
+            if integer:
+                pts = np.round(np.nan_to_num(pts, nan=-1e6, posinf=1e6, neginf=-1e6))
+            p = torch.from_numpy(pts).to(dev)
+            got = lk_sample.sample_channels(chans, p, win)
+            want = lk_sample.sample_channels_plain(torch.stack(chans), p, win)
+            torch.cuda.synchronize()
+            err4 = max(err4, max_abs_err((got, want)))
+            if not torch.equal(got, want):
+                fail(f"K4 ({name}, N={n}) differs from its plain version: "
+                     f"{(got != want).sum().item()} values")
+            if got[:, 9:14].any():
+                fail(f"K4 ({name}, N={n}): a far-outside or non-finite point has a non-zero window")
+            stack = torch.stack(chans)[None]
+            grid = window_grid(p, win, h, w)
+            lib = F.grid_sample(stack, grid, mode="bilinear", padding_mode="zeros",
+                                align_corners=True).reshape(len(chans), n, win, win)
+            lib_err = float((lib - got).abs().max())
+            c = len(chans)
+            tot["ms"] += device_time_ms(lambda: lk_sample.sample_channels(chans, p, win))
+            tot["plain_ms"] += device_time_ms(
+                lambda: lk_sample.sample_channels_plain(torch.stack(chans), p, win), calls=3)
+            tot["library_ms"] += device_time_ms(
+                lambda: F.grid_sample(stack, grid, mode="bilinear", padding_mode="zeros",
+                                      align_corners=True))
+            tot["bytes"] += c * h * w * 4 + n * 8 + c * n * win * win * 4
+            tot["ops"] += c * n * win * win * 7 + n * 12  # 4 mul + 3 add per output; weights
+            print(f"[K4] {name} C={c} win {win} N={n}: exact ({int(np.isfinite(pts).all(1).sum())} "
+                  f"finite points); grid_sample differs by {lib_err:.3g}", flush=True)
+        tot["bound_ms"] = max(tot["bytes"] / HBM_BYTES_PER_S, tot["ops"] / rates["fp32_add"]) * 1e3
+        tot["bound_by"] = ("bytes" if tot["bytes"] / HBM_BYTES_PER_S >= tot["ops"] / rates["fp32_add"]
+                           else "operations")
+        per_n[n] = tot
+        print(f"[K4] three sites, N={n}: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+              f"grid_sample {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+              f"({tot['bound_by']})", flush=True)
+    t = per_n[2000]
+    rows = {"lk_sample": dict(
+        name="lk_sample (K4: bilinear LK windows of C channels, zero outside the image; "
+             "the three sites of one level-0 track, summed)",
+        route="cuda", source="opencv_tpu_torch/csrc/lk_sample.cu",
+        replaces="opencv_tpu/ops/pallas/lk_sample.py:165",
+        max_abs_err=err4, ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        shapes=[[len(ch), h, w, 2000, win] for _, ch, win, _ in sites],
+        at_n512={k: per_n[512][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+    )}
+
+    # K5: edge-clamped single-channel windows, its documented domain
+    n, win = 512, 21
+    p = torch.from_numpy(lk_points(n, h, w, win, seed=5, odd=False)).to(dev)
+    got = lk_sample.sample_windows(lvl0, p, win)
+    want = lk_sample.sample_windows_plain(lvl0, p, win)
+    torch.cuda.synchronize()
+    err5 = max_abs_err((got, want))
+    if not torch.equal(got, want):
+        fail(f"K5 differs from its plain version: {(got != want).sum().item()} values")
+    grid = window_grid(p, win, h, w)
+    img4 = lvl0[None, None]
+    k5_ms = device_time_ms(lambda: lk_sample.sample_windows(lvl0, p, win))
+    k5_pl = device_time_ms(lambda: lk_sample.sample_windows_plain(lvl0, p, win), calls=3)
+    k5_lib = device_time_ms(lambda: F.grid_sample(img4, grid, mode="bilinear",
+                                                  padding_mode="border", align_corners=True))
+    b5 = h * w * 4 + n * 8 + n * win * win * 4
+    o5 = n * win * win * 9 + n * 12  # two row blends and one column blend: 6 mul + 3 add
+    rows["lk_sample_clamp"] = dict(
+        name="lk_sample_clamp (K5: edge-clamped single-channel LK windows)", route="cuda",
+        source="opencv_tpu_torch/csrc/lk_sample.cu",
+        replaces="opencv_tpu/ops/pallas/lk_sample.py:47",
+        max_abs_err=err5, ms=k5_ms, plain_ms=k5_pl, library_ms=k5_lib,
+        bound_ms=max(b5 / HBM_BYTES_PER_S, o5 / rates["fp32_add"]) * 1e3,
+        bound_by="bytes" if b5 / HBM_BYTES_PER_S >= o5 / rates["fp32_add"] else "operations",
+        shapes=[[1, h, w, n, win]],
+    )
+    print(f"[K5] exact at N={n} win {win}; kernel {k5_ms:.4f} ms, plain {k5_pl:.4f} ms, "
+          f"grid_sample (border) {k5_lib:.4f} ms", flush=True)
     return rows
 
 
@@ -355,7 +503,166 @@ def phase_main_path(frames, centres, K, warm_runs: int = 3) -> dict:
     return res
 
 
-def phase_profile(frames, K, warmup: int = 40, window: int = 16) -> None:
+def lk_config2_run(frames_dev, cfg, dev):
+    """bench.py config 2 on a clip: GFTT, then per frame one pyramid and
+    one pyramid-reuse LK call; re-detect when fewer than 500 survive.
+    Returns (tracked count per pair, re-detections)."""
+    from opencv_tpu_torch.ops import gftt, lk
+
+    def detect(img):
+        kp = gftt.good_features_to_track(img, max_corners=512, quality_level=0.01,
+                                         min_distance=7.0, device=dev)
+        return kp.xy, kp.valid
+
+    pyr_prev = lk.build_flow_pyramid(frames_dev[0], cfg, dev)
+    pts, valid = detect(frames_dev[0])
+    tracked, redetect = [], 0
+    for f in range(1, frames_dev.shape[0]):
+        pyr = lk.build_flow_pyramid(frames_dev[f], cfg, dev)
+        new, status, _ = lk.calc_optical_flow_pyr_lk_pyr(pyr_prev, pyr, pts, valid, cfg)
+        count = int(status.sum())  # the host decides, as bench's lax.cond on device
+        tracked.append(count)
+        if count < 500:
+            pts, valid = detect(frames_dev[f])
+            redetect += 1
+        else:
+            pts, valid = new, status
+        pyr_prev = pyr
+    return tracked, redetect
+
+
+def phase_lk_path(frames, warm_runs: int = 3, dev: str = "cuda") -> dict:
+    """The LK path (bench.py config 2) on the first 100 frames, and its two
+    checks: (a) 4 pairs against the same path on the CPU, (b) frame 0
+    rolled by (dx, dy) = (5, 3) px, on corners at least 48 px inside
+    (the roll wraps the border, and a coarse level's window reaches it)."""
+    import torch
+
+    from opencv_tpu_torch.core.config import LKConfig
+    from opencv_tpu_torch.ops import cuda as cuda_ops
+    from opencv_tpu_torch.ops import gftt, lk
+
+    cfg = LKConfig(win_size=21, n_levels=4)
+    clip = torch.from_numpy(np.ascontiguousarray(frames[:100])).to(dev)
+    n = clip.shape[0]
+    t0 = time.perf_counter()
+    lk_config2_run(clip, cfg, dev)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    warm_s, runs = [], []
+    for _ in range(warm_runs):
+        cuda_ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tracked, redetect = lk_config2_run(clip, cfg, dev)
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+        runs.append((tracked, redetect, dict(cuda_ops.launch_counts)))
+        if runs[-1][2]["lk_sample"] <= 0:
+            fail("kernel lk_sample was not launched on the LK path")
+    tracked, redetect, counts = runs[0]
+    warm = statistics.median(warm_s)
+    per_pair = counts["lk_sample"] / (n - 1)
+
+    # (a) 4 pairs: the card against the port on the CPU, the same points
+    kp = gftt.good_features_to_track(clip[0], max_corners=512, quality_level=0.01,
+                                     min_distance=7.0, device=dev)
+    pts, valid = kp.xy, kp.valid
+    worst, agree, n_both = 0.0, [], 0
+    for f in range(4):
+        a, b = clip[f], clip[f + 1]
+        g_new, g_st, _ = lk.calc_optical_flow_pyr_lk(a, b, pts, valid, cfg, device=dev)
+        c_new, c_st, _ = lk.calc_optical_flow_pyr_lk(a.cpu(), b.cpu(), pts.cpu(), valid.cpu(),
+                                                     cfg, device="cpu")
+        g_new, g_st = g_new.cpu(), g_st.cpu()
+        both = g_st & c_st
+        agree.append(float((g_st == c_st)[valid.cpu()].float().mean()))
+        n_both += int(both.sum())
+        if both.any():
+            worst = max(worst, float((g_new - c_new)[both].abs().max()))
+        pts, valid = g_new.to(dev), g_st.to(dev)
+    print(f"[lk] (a) 4 pairs, card vs CPU: {n_both} points tracked in both, largest "
+          f"difference {worst:.3g} px, status agreement {min(agree):.4f} (worst pair)", flush=True)
+    if not worst <= 0.05:
+        fail(f"LK on the card differs from the CPU run by {worst} px (> 0.05)")
+    if not min(agree) >= 0.99:
+        fail(f"LK status agrees with the CPU run on only {min(agree):.4f} of the points")
+
+    # (b) a known translation: frame 0 rolled by 3 rows and 5 columns
+    moved = torch.roll(clip[0], (3, 5), dims=(0, 1))
+    h, w = clip.shape[1:]
+    kp = gftt.good_features_to_track(clip[0], max_corners=512, quality_level=0.01,
+                                     min_distance=7.0, device=dev)
+    xy = kp.xy
+    inner = kp.valid & (xy[:, 0] >= 48) & (xy[:, 0] <= w - 49) & (xy[:, 1] >= 48) & (xy[:, 1] <= h - 49)
+    new, st, _ = lk.calc_optical_flow_pyr_lk(clip[0], moved, xy, inner, cfg, device=dev)
+    flow = (new - xy)[st]
+    shift_err = float((flow - torch.tensor([5.0, 3.0], device=dev)).abs().max()) if st.any() else float("inf")
+    print(f"[lk] (b) shift (5, 3): {int(st.sum())} of {int(inner.sum())} interior corners tracked, "
+          f"largest flow error {shift_err:.4f} px", flush=True)
+    if not shift_err < 0.35:
+        fail(f"LK flow error {shift_err} px on a pure (5, 3) shift (bound 0.35)")
+
+    res = dict(frames=n, fps_warm=n / warm, fps_warm_runs=[n / t for t in warm_s],
+               warm_s=warm, cold_s=cold, tracked_mean=float(np.mean(tracked)),
+               tracked_min=int(np.min(tracked)), redetections=redetect,
+               k4_launches_per_pair=per_pair, cpu_check_max_px=worst,
+               cpu_check_status_agreement=min(agree), shift_check_max_px=shift_err,
+               launches=counts)
+    print(f"[lk] {n} frames 480x640, GFTT 512 + LK win 21 x 4 levels: warm {warm:.3f} s "
+          f"({n / warm:.2f} frames/s, median of {warm_runs} runs, range "
+          f"{n / max(warm_s):.2f} to {n / min(warm_s):.2f}), cold {cold:.3f} s; tracked per pair "
+          f"mean {res['tracked_mean']:.1f}, min {res['tracked_min']}; {redetect} re-detections; "
+          f"K4 launches per pair {per_pair:.2f}; launches {counts}", flush=True)
+    return res
+
+
+def phase_klt(frames, centres, K) -> dict:
+    """The VO engine with the klt tracker, cold then warm."""
+    import torch
+
+    from opencv_tpu_torch.core.config import ORBConfig
+    from opencv_tpu_torch.ops import cuda as cuda_ops
+    from opencv_tpu_torch.slam.vo import VisualOdometry, VOConfig
+    from opencv_tpu_torch.utils.evaluate import ate_rmse
+
+    cfg = VOConfig(orb=ORBConfig(n_features=2000), tracker="klt")
+    n = frames.shape[0]
+    t0 = time.perf_counter()
+    VisualOdometry(K, cfg, seed=0).process_sequence(frames)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    vo = VisualOdometry(K, cfg, seed=0)
+    cuda_ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = vo.process_sequence(frames)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    counts = dict(cuda_ops.launch_counts)
+    if traj.shape != (n, 3) or not np.isfinite(traj).all():
+        fail(f"klt trajectory shape {traj.shape} or non-finite values")
+    path = float(np.linalg.norm(np.diff(centres, axis=0), axis=1).sum())
+    ate = ate_rmse(traj, centres, with_scale=True)
+    res = dict(frames=n, fps_warm=n / warm, warm_s=warm, cold_s=cold, ate=ate, path=path,
+               ate_pct=100 * ate / path, keyframes=len(vo.keyframes), lk_tracked=vo.lk_tracked,
+               relocalizations=vo.relocalizations, state=vo.state, launches=counts)
+    print(f"[klt] {n} frames 480x640: warm {warm:.3f} s ({n / warm:.2f} frames/s), cold "
+          f"{cold:.3f} s; ATE {ate:.5f} = {100 * ate / path:.3f} % of path {path:.3f}; "
+          f"{len(vo.keyframes)} keyframes, {vo.lk_tracked} frames tracked by LK, "
+          f"{vo.relocalizations} relocalizations; launches {counts}", flush=True)
+    if vo.state != "tracking":
+        fail(f"klt engine state {vo.state}")
+    if vo.lk_tracked <= 0:
+        fail("the klt engine tracked no frame by LK")
+    if counts["lk_sample"] <= 0:
+        fail("kernel lk_sample was not launched by the klt engine")
+    if not ate < 0.05 * path:
+        fail(f"klt ATE {ate:.4f} >= 5% of path {path:.3f}")
+    return res
+
+
+def phase_profile(frames, K, tracker: str = "orb", warmup: int = 40, window: int = 16) -> None:
     """Where the time goes in steady tracking: torch.profiler over frames
     [warmup, warmup + window) of a fresh engine that has tracked the first
     `warmup` frames. Prints the device's busy share of the window's wall
@@ -370,9 +677,10 @@ def phase_profile(frames, K, warmup: int = 40, window: int = 16) -> None:
     from opencv_tpu_torch.core.config import ORBConfig
     from opencv_tpu_torch.slam.vo import VisualOdometry, VOConfig
 
-    vo = VisualOdometry(K, VOConfig(orb=ORBConfig(n_features=2000)), seed=0)
+    vo = VisualOdometry(K, VOConfig(orb=ORBConfig(n_features=2000), tracker=tracker), seed=0)
     vo.process_sequence(frames[:warmup], chunk=8)
     torch.cuda.synchronize()
+    tag = f"profile {tracker}"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         vo.process_sequence(frames[warmup: warmup + window], chunk=8)
@@ -383,19 +691,19 @@ def phase_profile(frames, K, warmup: int = 40, window: int = 16) -> None:
     host = [e for e in events if e.device_type == DeviceType.CPU]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     launches = sum(e.count for e in kernels)
-    print(f"[profile] frames {warmup}-{warmup + window}: wall {wall:.3f} s "
+    print(f"[{tag}] frames {warmup}-{warmup + window}: wall {wall:.3f} s "
           f"({window / wall:.2f} frames/s under the profiler), {launches} kernels "
           f"({launches / window:.0f} per frame)", flush=True)
     if busy <= 0:
-        print("[profile] no kernel time visible to torch.profiler: busy share not measured",
+        print(f"[{tag}] no kernel time visible to torch.profiler: busy share not measured",
               flush=True)
     else:
-        print(f"[profile] device busy {busy:.3f} s = {100 * busy / wall:.1f} % of wall", flush=True)
+        print(f"[{tag}] device busy {busy:.3f} s = {100 * busy / wall:.1f} % of wall", flush=True)
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
-        print(f"[profile] kernel {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
+        print(f"[{tag}] kernel {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
               f"{e.key[:100]}", flush=True)
     for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]:
-        print(f"[profile] host {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x  "
+        print(f"[{tag}] host {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x  "
               f"{e.key[:100]}", flush=True)
 
 
@@ -412,14 +720,28 @@ def main():
     frames, centres, K = make_sequence()
     print(f"[scene] {frames.shape[0]} frames {frames.shape[1]}x{frames.shape[2]} rendered in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    rows = phase_kernels(frames[0], rates)
-    main_res = phase_main_path(frames, centres, K)
-    phase_profile(frames, K)
-    n = main_res.pop("frames")
-    launches = main_res.pop("launches")
-    kernels = [dict(row, launches=launches[key], launches_per_frame=launches[key] / n,
-                    on_main_path=key != "fast_score") for key, row in rows.items()]
-    print(json.dumps({"main_path": dict(main_res, frames=n)}), flush=True)
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {name}: {time.perf_counter() - t:.1f} s (total "
+              f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+        return out
+
+    rows = timed("kernels", phase_kernels, frames[0], rates)
+    paths = {"vo_orb": timed("vo_orb", phase_main_path, frames, centres, K),
+             "lk": timed("lk", phase_lk_path, frames),
+             "vo_klt": timed("vo_klt", phase_klt, frames, centres, K)}
+    timed("profile orb", phase_profile, frames, K, "orb")
+    timed("profile klt", phase_profile, frames, K, "klt")
+    kernels = []
+    for key, row in rows.items():
+        by_path = {p: res["launches"][key] for p, res in paths.items()}
+        kernels.append(dict(row, launches=sum(by_path.values()), launches_by_path=by_path,
+                            launches_per_frame={p: by_path[p] / paths[p]["frames"] for p in paths},
+                            on_main_path=key not in ("fast_score", "lk_sample_clamp")))
+    print(json.dumps({"paths": paths}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     import torch

@@ -86,11 +86,35 @@ def box_sum_integral(img: torch.Tensor, ksize: int) -> torch.Tensor:
     return d - b - c + a
 
 
-def sobel_derivatives(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dx, dy) 3x3 Sobel."""
-    smooth = np.array([1.0, 2.0, 1.0], np.float32)
+def scharr_derivatives(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dy) with the 3x3 Scharr operator of the LK pyramid (smooth
+    [3,10,3]/32, diff [-1,0,1])."""
+    smooth = np.array([3.0, 10.0, 3.0], np.float32) / 32.0
     diff = np.array([-1.0, 0.0, 1.0], np.float32)
     return sep_filter2d(img, smooth, diff), sep_filter2d(img, diff, smooth)
+
+
+def sobel_derivatives(img: torch.Tensor, ksize: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dy) Sobel, ksize 3 or 5."""
+    if ksize == 3:
+        smooth = np.array([1.0, 2.0, 1.0], np.float32)
+        diff = np.array([-1.0, 0.0, 1.0], np.float32)
+    elif ksize == 5:
+        smooth = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32)
+        diff = np.array([-1.0, -2.0, 0.0, 2.0, 1.0], np.float32)
+    else:
+        raise ValueError(f"unsupported sobel ksize {ksize}")
+    return sep_filter2d(img, smooth, diff), sep_filter2d(img, diff, smooth)
+
+
+def min_eig_response(img: torch.Tensor, block_size: int = 3) -> torch.Tensor:
+    """cv::cornerMinEigenVal analog: the smaller eigenvalue of the
+    block-summed structure tensor of 3x3 Sobel derivatives."""
+    ix, iy = sobel_derivatives(img)
+    a = box_sum_integral(ix * ix, block_size) * 0.5
+    c = box_sum_integral(iy * iy, block_size) * 0.5
+    b = box_sum_integral(ix * iy, block_size) * 0.5
+    return (a + c) - torch.sqrt((a - c) * (a - c) + b * b)
 
 
 def _interp_taps(n_out: int, n_in: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

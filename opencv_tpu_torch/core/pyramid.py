@@ -1,10 +1,12 @@
-"""ORB scale pyramid: a tuple of per-level tensors with static shapes
-(port of opencv_tpu/core/pyramid.py `build_pyramid`)."""
+"""Image pyramids as tuples of per-level tensors with static shapes (port
+of opencv_tpu/core/pyramid.py): the ORB scale pyramid and the octave
+pyramid of Lucas-Kanade."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from opencv_tpu_torch.core import imgproc
@@ -40,3 +42,27 @@ def build_pyramid(img: torch.Tensor, n_levels: int = 8, scale_factor: float = 1.
         levels.append(img if lvl == 0 else imgproc.resize_bilinear(img, lh, lw))
         scales.append(float(scale_factor ** lvl))
     return Pyramid(levels=tuple(levels), scales=tuple(scales))
+
+
+def pyr_down(img: torch.Tensor) -> torch.Tensor:
+    """cv::pyrDown analog: 5-tap Gaussian [1,4,6,4,1]/16, then 2x decimation."""
+    k = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
+    return imgproc.sep_filter2d(img, k, k)[..., ::2, ::2].contiguous()
+
+
+def pyr_up(img: torch.Tensor) -> torch.Tensor:
+    """cv::pyrUp analog: 2x zero-stuffing, then the same Gaussian times 4."""
+    h, w = img.shape[-2:]
+    up = torch.zeros(img.shape[:-2] + (h * 2, w * 2), dtype=torch.float32, device=img.device)
+    up[..., ::2, ::2] = img
+    k = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 8.0  # 2x per axis
+    return imgproc.sep_filter2d(up, k, k)
+
+
+def build_lk_pyramid(img: torch.Tensor, n_levels: int = 3) -> Pyramid:
+    """`buildOpticalFlowPyramid` analog: octave pyramid by pyrDown; level i
+    has scale 2**i."""
+    levels = [img.to(torch.float32)]
+    for _ in range(1, n_levels):
+        levels.append(pyr_down(levels[-1]))
+    return Pyramid(levels=tuple(levels), scales=tuple(float(2 ** i) for i in range(n_levels)))

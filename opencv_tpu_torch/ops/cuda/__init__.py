@@ -6,7 +6,9 @@ error. `launch_counts` counts kernel launches per wrapper (plain-version
 calls are not counted), so a run can show that it went through them.
 """
 
-launch_counts: dict[str, int] = {"fast_corners": 0, "fast_score": 0, "knn2_hamming": 0}
+launch_counts: dict[str, int] = {
+    "fast_corners": 0, "fast_score": 0, "knn2_hamming": 0, "lk_sample": 0, "lk_sample_clamp": 0,
+}
 
 
 def reset_launch_counts() -> None:

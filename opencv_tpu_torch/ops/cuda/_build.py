@@ -24,7 +24,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("fast", "knn2_hamming")
+KERNEL_SOURCES = ("fast", "knn2_hamming", "lk_sample")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

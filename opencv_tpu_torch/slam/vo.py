@@ -1,9 +1,14 @@
-"""Monocular visual odometry engine (port of opencv_tpu/slam/vo.py, ORB
-tracker): ORB front end -> Hamming matching -> two-view bootstrap
-(E-RANSAC + H-RANSAC + recoverPose + triangulation) -> per-frame
-frame-to-map P3P-RANSAC -> keyframing + triangulation -> windowed bundle
-adjustment -> keyframe retrieval, PnP verification and pose-graph
-relaxation.
+"""Monocular visual odometry engine (port of opencv_tpu/slam/vo.py): ORB
+front end -> Hamming matching -> two-view bootstrap (E-RANSAC + H-RANSAC
++ recoverPose + triangulation) -> per-frame frame-to-map P3P-RANSAC ->
+keyframing + triangulation -> windowed bundle adjustment -> keyframe
+retrieval, PnP verification and pose-graph relaxation.
+
+Both trackers of the JAX engine are ported: "orb" re-detects and
+re-matches every frame; "klt" tracks the keyframe's landmarks with
+pyramidal LK (ops/lk.py) between keyframes, PnPs the tracked positions,
+does descriptor work only at keyframes and falls back to ORB matching when
+the track thins out.
 
 Control (keyframe decisions, map bookkeeping, window compaction) runs in
 host numpy exactly as in the JAX engine; every batch-numeric stage is a
@@ -15,9 +20,8 @@ when the host mirror changes.
 `process_sequence` keeps the JAX engine's chunk semantics: frames of a
 chunk track against the map as it stood when the chunk was dispatched.
 They are tracked lazily, one frame at a time, so a chunk that restarts
-early does no wasted work.
-
-Not ported in this slice: the "klt" tracker (ops/lk.py).
+early does no wasted work. With the "klt" tracker `process_sequence`
+calls `process` per frame, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 from opencv_tpu_torch.core.config import LKConfig, MatchConfig, ORBConfig, RansacConfig
 from opencv_tpu_torch.device import resolve_device
 from opencv_tpu_torch.geometry import decompose, epipolar, homography as hom_mod, pnp
-from opencv_tpu_torch.ops import matching, orb
+from opencv_tpu_torch.ops import lk, matching, orb
 from opencv_tpu_torch.optim import ba
 from opencv_tpu_torch.slam import loop_closure
 
@@ -95,7 +99,7 @@ class VOConfig:
 
     orb: ORBConfig = ORBConfig(n_features=1000)
     match: MatchConfig = MatchConfig(ratio=0.8, cross_check=True)
-    tracker: str = "orb"  # "klt" is not ported yet
+    tracker: str = "orb"  # "orb" or "klt" (LK between keyframes)
     lk: "LKConfig" = None
     klt_min_tracked: int = 40
     essential_threshold_px: float = 1.0
@@ -178,6 +182,20 @@ class _Stages:
                                    adaptive=False, cfg=self.pnp_cfg)
         return {
             "ti": m.train_idx, "mv": m.valid, "n_matches": m.valid.sum(),
+            "rvec": res.rvec, "tvec": res.tvec, "ok": res.ok,
+            "n_inl": res.n_inliers, "inl": res.inliers,
+        }
+
+    def klt(self, prev, cur, px, pvalid, lm_idx, lm_pos, gen):
+        """LK-track the track set from prev to cur, then PnP the tracked
+        positions against their landmarks (the JAX engine's klt_k)."""
+        new_px, status, _ = lk.calc_optical_flow_pyr_lk(prev, cur, px, pvalid, cfg=self.cfg.lk,
+                                                        device=self.dev)
+        st = status & pvalid
+        res = pnp.solve_pnp_ransac(gen, lm_pos[lm_idx], self.norm_xy(new_px), valid=st,
+                                   adaptive=False, cfg=self.pnp_cfg)
+        return {
+            "new_px": new_px, "st": st,
             "rvec": res.rvec, "tvec": res.tvec, "ok": res.ok,
             "n_inl": res.n_inliers, "inl": res.inliers,
         }
@@ -327,8 +345,8 @@ class VisualOdometry:
 
     def __init__(self, K: np.ndarray, config: VOConfig = VOConfig(), seed: int = 0,
                  device=None):
-        if config.tracker != "orb":
-            raise NotImplementedError(f"tracker {config.tracker!r} is not ported yet")
+        if config.tracker not in ("orb", "klt"):
+            raise ValueError(f"unknown tracker {config.tracker!r}")
         self.device = resolve_device(device)
         self.K = np.asarray(K, np.float32)
         self.cfg = config
@@ -358,6 +376,13 @@ class VisualOdometry:
         self._db_valid_dev = None  # [Kcap, N] bool
         self._db_count = 0
         self._preinit: list = []
+        # klt tracker state: the previous frame on the device and the track
+        # set (pixel positions, landmark ids, validity) in host numpy
+        self._prev_img = None
+        self._klt_px = np.zeros((config.orb.n_features, 2), np.float32)
+        self._klt_lm = np.full(config.orb.n_features, -1, np.int64)
+        self._klt_valid = np.zeros(config.orb.n_features, bool)
+        self.lk_tracked = 0  # frames whose pose came from the LK track
         self._stages = _Stages(config, self.K, self.device)
 
     # ---------- device state caches ----------
@@ -403,8 +428,8 @@ class VisualOdometry:
 
     # ---------- pipeline stages ----------
 
-    def _detect_frame(self, img):
-        det = _fetch(self._stages.detect(self._t(img, torch.float32)))
+    def _detect_frame(self, img_dev):
+        det = _fetch(self._stages.detect(img_dev))
         return det["xy"], det["desc"], det["kvalid"]
 
     def _bootstrap(self, kf0: Keyframe, xy1, desc1, valid1, frame_id):
@@ -462,6 +487,42 @@ class VisualOdometry:
         self.keyframes.append(kf1)
         self._db_append(kf1)
         return rvec1, np.asarray(t, np.float32)
+
+    def _denormalize(self, xy: np.ndarray) -> np.ndarray:
+        return np.stack([xy[:, 0] * self.K[0, 0] + self.K[0, 2],
+                         xy[:, 1] * self.K[1, 1] + self.K[1, 2]], axis=1)
+
+    def _reseed_klt(self, kp_xy_norm, kp_valid, lm_idx):
+        """Reset the track set to the landmark-associated keypoints."""
+        n = self._klt_px.shape[0]
+        sel = np.flatnonzero((lm_idx >= 0) & kp_valid)[:n]
+        self._klt_px[:] = 0.0
+        self._klt_lm[:] = -1
+        self._klt_valid[:] = False
+        self._klt_px[: sel.size] = self._denormalize(kp_xy_norm[sel])
+        self._klt_lm[: sel.size] = lm_idx[sel]
+        self._klt_valid[: sel.size] = True
+
+    def _track_klt(self, img_dev):
+        """LK-track the landmark set and PnP the new positions. Returns
+        (rvec, tvec, n_inliers) or None (track too thin)."""
+        if self._prev_img is None or self._klt_valid.sum() < self.cfg.klt_min_tracked:
+            return None
+        out = _fetch(self._stages.klt(
+            self._prev_img, img_dev, self._t(self._klt_px),
+            self._t(self._klt_valid & (self._klt_lm >= 0)), self._t(np.maximum(self._klt_lm, 0)),
+            self._device_map()[0], self.gen,
+        ))
+        status = out["st"]
+        if int(status.sum()) < self.cfg.klt_min_tracked:
+            return None
+        n_inl = int(out["n_inl"])
+        if not bool(out["ok"]) or n_inl < self.cfg.min_track_inliers:
+            return None
+        # keep tracking inlier points only (outlier tracks have drifted)
+        self._klt_px[:] = out["new_px"]
+        self._klt_valid[:] = status & out["inl"]
+        return out["rvec"], out["tvec"], n_inl
 
     def _track(self, xy, desc, valid):
         """Frame-to-map PnP from host-side detections (retro-localization)."""
@@ -749,12 +810,14 @@ class VisualOdometry:
 
     def process(self, img: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Process one grayscale frame; returns (rvec, tvec) world->cam."""
-        img = np.asarray(img, np.float32)
+        img_dev = self._t(np.asarray(img, np.float32), torch.float32)
         frame_id = self.frames
         self.frames += 1
+        klt = self.cfg.tracker == "klt"
 
         if self.state == "init":
-            xy, desc, valid = self._detect_frame(img)
+            xy, desc, valid = self._detect_frame(img_dev)
+            self._prev_img = img_dev
             if int(valid.sum()) < self.cfg.min_init_features:
                 self.poses.append((np.zeros(3, np.float32), np.zeros(3, np.float32)))
                 return self.poses[-1]
@@ -766,8 +829,9 @@ class VisualOdometry:
             return kf.rvec, kf.tvec
 
         if self.state == "bootstrapping":
-            xy, desc, valid = self._detect_frame(img)
+            xy, desc, valid = self._detect_frame(img_dev)
             out = self._bootstrap(self.keyframes[0], xy, desc, valid, frame_id)
+            self._prev_img = img_dev
             if out is None:
                 stale = frame_id - self.keyframes[0].frame_id
                 if stale > self.cfg.bootstrap_max_frames and int(valid.sum()) >= self.cfg.min_init_features:
@@ -788,11 +852,38 @@ class VisualOdometry:
                 if t2 is not None:
                     self.poses[fid] = (t2[0], t2[1])
             self._preinit.clear()
+            if klt:
+                kf1 = self.keyframes[-1]
+                self._reseed_klt(kf1.kp_xy, kf1.kp_valid, kf1.landmark_idx)
             return out
 
-        # ---- tracking: fused detect + match + PnP, small fetch ----
-        dev_out = self._stages.track(self._t(img, torch.float32), *self._device_map(), self.gen)
+        # ---- tracking ----
+        if klt:
+            out = self._track_klt(img_dev)
+            if out is not None:
+                rvec, tvec, n_inl = out
+                self.lk_tracked += 1
+                self.poses.append((rvec, tvec))
+                if self._need_keyframe(rvec, tvec, n_inl):
+                    # descriptor work only at keyframes: detect, re-match
+                    # to the map for landmark ids, keyframe, reseed
+                    xy, desc, valid = self._detect_frame(img_dev)
+                    t2 = self._track(xy, desc, valid)
+                    if t2 is not None:
+                        rvec, tvec, n_inl2, lm_idx = t2
+                        self.poses[-1] = (rvec, tvec)
+                        self._maybe_keyframe(frame_id, rvec, tvec, xy, desc, valid, lm_idx,
+                                             n_inl2, force=True)
+                        kf = self.keyframes[-1]
+                        self._reseed_klt(kf.kp_xy, kf.kp_valid, kf.landmark_idx)
+                self._prev_img = img_dev
+                return self.poses[-1]
+            # the LK track thinned out: fall through to the ORB matcher
+
+        # fused detect + match + PnP, small fetch
+        dev_out = self._stages.track(img_dev, *self._device_map(), self.gen)
         small = _fetch({k: dev_out[k] for k in _SMALL_KEYS})
+        self._prev_img = img_dev
         out = self._track_decide(small, self.cfg.orb.n_features)
         if out is None:
             big = _fetch({k: dev_out[k] for k in _BIG_KEYS})
@@ -805,6 +896,9 @@ class VisualOdometry:
             big = _fetch({k: dev_out[k] for k in _BIG_KEYS})
             self._maybe_keyframe(frame_id, rvec, tvec, big["xy"], big["desc"], big["kvalid"],
                                  lm_idx, n_inl, force=True)
+        if klt:
+            src = self.keyframes[-1]
+            self._reseed_klt(src.kp_xy, src.kp_valid, src.landmark_idx)
         return rvec, tvec
 
     def _seq_ingest(self, xy, desc, valid) -> bool:
@@ -849,7 +943,12 @@ class VisualOdometry:
     def process_sequence(self, frames: np.ndarray, chunk: int = 8) -> np.ndarray:
         """Process a clip in chunks of `chunk` frames; keyframe, BA and
         loop-closure updates land at chunk granularity as in the JAX
-        engine. Returns trajectory()."""
+        engine. The "klt" tracker runs `process` per frame, as the JAX
+        engine does. Returns trajectory()."""
+        if self.cfg.tracker == "klt":
+            for f in frames:
+                self.process(f)
+            return self.trajectory()
         frames = np.asarray(frames)
         F = frames.shape[0]
         clip = np.clip(frames, 0, 255).astype(np.uint8)

@@ -1,6 +1,7 @@
 """CUDA kernels of the PyTorch port against their plain PyTorch versions on
-an NVIDIA card: K1/K2 (csrc/fast.cu) and K3 (csrc/knn2_hamming.cu), at
-the main path's shapes and at ragged ones, all exact.
+an NVIDIA card: K1/K2 (csrc/fast.cu), K3 (csrc/knn2_hamming.cu) and K4/K5
+(csrc/lk_sample.cu), at the main path's shapes and at ragged ones, all
+exact; and the LK path on the card against the same path on the CPU.
 
 This file imports neither jax nor the JAX package, so that it runs on a
 machine that has only PyTorch:
@@ -15,7 +16,9 @@ import pytest
 import torch
 
 from opencv_tpu_torch.ops import cuda as cuda_ops
-from opencv_tpu_torch.ops.cuda import fast_kernel, knn
+from opencv_tpu_torch.core.config import LKConfig
+from opencv_tpu_torch.ops import lk
+from opencv_tpu_torch.ops.cuda import fast_kernel, knn, lk_sample
 
 
 @pytest.fixture()
@@ -69,6 +72,76 @@ def test_knn2_kernel_equals_plain(card, nq, nt):
     assert bool((got[0] == got[1]).any())  # ties present
 
 
+def _lk_points(rng, n, h, w, win):
+    """Interior subpixel points, then every border, outside, far outside
+    and non-finite case of tests/test_pallas_lk_sample.py."""
+    pts = np.stack([rng.uniform(0, w - 1, n), rng.uniform(0, h - 1, n)], -1).astype(np.float32)
+    odd = np.array([
+        [0.0, 0.0], [w - 1.0, h - 1.0], [0.3, 17.2], [w - 1.4, 30.1], [40.2, 0.7],
+        [39.9, h - 1.2], [-3.5, 12.0], [w + 4.0, h + 4.0], [-win / 2, -win / 2],
+        [-500.0, -500.0], [1e7, 12.0], [np.nan, 5.0], [5.0, np.inf], [-np.inf, 3.0],
+        [33.0, 44.0],
+    ], np.float32)
+    pts[: len(odd)] = odd
+    return pts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ch,win,n,integer", [
+    (3, 21, 2000, False),  # templates of the klt engine's track set
+    (3, 21, 512, False),  # templates of the LK path
+    (1, 48, 512, True),  # patch extraction at integer origins
+    (1, 21, 2000, False),  # polish
+    (2, 15, 37, False),  # ragged
+])
+def test_lk_sample_kernel_equals_plain(card, n_ch, win, n, integer):
+    rng = np.random.default_rng(11)
+    for h, w in ((480, 640), (67, 93)):
+        chans = torch.from_numpy(rng.normal(100, 50, (n_ch, h, w)).astype(np.float32)).to(card)
+        pts = _lk_points(rng, n, h, w, win)
+        if integer:
+            pts = np.round(pts)
+        p = torch.from_numpy(pts).to(card)
+        got = lk_sample.sample_channels(chans, p, win)
+        want = lk_sample.sample_channels_plain(chans, p, win)
+        assert got.shape == (n_ch, n, win, win)
+        assert torch.equal(got, want)
+        assert not got[:, 9:14].any()  # far outside and non-finite: zero windows
+
+
+@pytest.mark.cuda
+def test_lk_windows_kernel_equals_plain(card):
+    rng = np.random.default_rng(12)
+    img = torch.from_numpy(rng.normal(100, 50, (480, 640)).astype(np.float32)).to(card)
+    pts = _lk_points(rng, 512, 480, 640, 21)
+    p = torch.from_numpy(pts).to(card)
+    assert torch.equal(lk_sample.sample_windows(img, p, 21), lk_sample.sample_windows_plain(img, p, 21))
+
+
+@pytest.mark.cuda
+def test_lk_path_on_card_equals_cpu(card):
+    """A 304x320 translation: level 0 is over the kernel's 90 000-px gate,
+    so K4 runs its three sites once each; the points agree with the CPU
+    run of the same path within 0.05 px."""
+    rng = np.random.default_rng(3)
+    small = rng.uniform(0, 255, (76, 80)).astype(np.float32)
+    img = np.kron(small, np.ones((4, 4), np.float32))
+    img = lk.imgproc.gaussian_blur(torch.from_numpy(img), 5, 1.2).numpy()
+    moved = np.roll(img, (3, 5), axis=(0, 1))
+    pts = np.stack([rng.uniform(30, 290, 300), rng.uniform(30, 270, 300)], -1).astype(np.float32)
+    cfg = LKConfig(win_size=21, n_levels=3)
+    cpu = lk.calc_optical_flow_pyr_lk(img, moved, pts, cfg=cfg, device="cpu")
+    cuda_ops.reset_launch_counts()
+    gpu = lk.calc_optical_flow_pyr_lk(img, moved, pts, cfg=cfg, device=card)
+    torch.cuda.synchronize()
+    assert cuda_ops.launch_counts["lk_sample"] == 3
+    both = cpu[1] & gpu[1].cpu()
+    assert (cpu[1] == gpu[1].cpu()).float().mean() >= 0.99 and both.sum() > 250
+    assert float((cpu[0] - gpu[0].cpu())[both].abs().max()) < 0.05
+    flow = (gpu[0].cpu() - torch.from_numpy(pts))[both]
+    assert float((flow - torch.tensor([5.0, 3.0])).abs().max()) < 0.35
+
+
 @pytest.mark.cuda
 def test_wrappers_count_launches(card):
     cuda_ops.reset_launch_counts()
@@ -77,5 +150,10 @@ def test_wrappers_count_launches(card):
     fast_kernel.fast_score_cuda(x)
     q, t, v = (a.to(card) for a in _tied_set(np.random.default_rng(0), 8, 64))
     knn.knn_match_streaming(q, t, train_valid=v)
+    pts = torch.zeros((4, 2), device=card)
+    lk_sample.sample_templates(x, x, x, pts, 21)
+    lk_sample.sample_single(x, pts, 48)
+    lk_sample.sample_windows(x, pts, 21)
     torch.cuda.synchronize()
-    assert cuda_ops.launch_counts == {"fast_corners": 1, "fast_score": 1, "knn2_hamming": 1}
+    assert cuda_ops.launch_counts == {"fast_corners": 1, "fast_score": 1, "knn2_hamming": 1,
+                                      "lk_sample": 2, "lk_sample_clamp": 1}

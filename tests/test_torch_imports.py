@@ -27,6 +27,15 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
     return roots
 
 
+def test_every_slice_module_is_checked():
+    """The import checks below walk the whole package; the LK slice's
+    modules are among them."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("ops/lk.py", "ops/gftt.py", "ops/cuda/lk_sample.py", "core/pyramid.py",
+                "slam/vo.py"):
+        assert f"opencv_tpu_torch/{mod}" in names
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_import(path):
     assert not _imported_roots(path) & set(FORBIDDEN)

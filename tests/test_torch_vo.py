@@ -155,3 +155,43 @@ def test_both_engines_on_synthetic_sequence(synthetic_sequence):  # noqa: F811
     assert ate_j < bound and ate_t < bound, (ate_j, ate_t, bound)
     # keyframe decisions hang on RANSAC draws near the inlier gates
     assert abs(len(jv.keyframes) - len(tv.keyframes)) <= 2, (len(jv.keyframes), len(tv.keyframes))
+
+
+def _klt_cfgs():
+    jcfg = dataclasses.replace(_jax_cfg(), tracker="klt")
+    return jcfg, convert.vo_config_from_dict(dataclasses.asdict(jcfg))
+
+
+def test_unknown_tracker_raises():
+    with pytest.raises(ValueError, match="unknown tracker"):
+        tvo.VisualOdometry(K, dataclasses.replace(_port_cfg(), tracker="sift"), device="cpu")
+
+
+def test_port_klt_engine_tracks_synthetic_sequence(synthetic_sequence):  # noqa: F811
+    """tracker="klt": LK carries the pose between keyframes; the JAX engine
+    tracked 14 of these 20 frames by LK at 0.43 % of the path."""
+    frames, centers, _ = synthetic_sequence
+    vo = tvo.VisualOdometry(K, _klt_cfgs()[1], seed=0, device="cpu")
+    traj = vo.process_sequence(np.asarray(frames))
+    assert vo.state == "tracking"
+    assert vo.lk_tracked >= 1
+    assert traj.shape == (len(frames), 3) and np.isfinite(traj).all()
+    assert ate_rmse(traj, centers, with_scale=True) < 0.05 * _path(centers)
+
+
+@pytest.mark.slow
+def test_both_klt_engines_on_synthetic_sequence(synthetic_sequence):  # noqa: F811
+    frames, centers, _ = synthetic_sequence
+    bound = 0.05 * _path(centers)
+    jcfg, tcfg = _klt_cfgs()
+    jv = jvo.VisualOdometry(K, jcfg, seed=0)
+    tv = tvo.VisualOdometry(K, tcfg, seed=0, device="cpu")
+    for f in frames:
+        jv.process(f)
+        tv.process(f)
+    assert jv.state == tv.state == "tracking"
+    assert tv.lk_tracked >= 1
+    ate_j = ate_rmse(jv.trajectory(), centers, with_scale=True)
+    ate_t = ate_rmse(tv.trajectory(), centers, with_scale=True)
+    assert ate_j < bound and ate_t < bound, (ate_j, ate_t, bound)
+    assert abs(len(jv.keyframes) - len(tv.keyframes)) <= 2, (len(jv.keyframes), len(tv.keyframes))
