@@ -73,12 +73,41 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torc
     return sep_filter2d(img, k, k)
 
 
-def box_sum_integral(img: torch.Tensor, ksize: int) -> torch.Tensor:
-    """(2r+1)^2 un-normalized box sum via two prefix sums; zero outside."""
+_SCAN_BLOCK = 16  # XLA's CPU rewrite of a long cumsum scans blocks of 16
+
+
+def _block_scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive f32 prefix sum along the last dim in the order XLA's CPU
+    backend computes jnp.cumsum: an axis longer than 16 is padded to
+    blocks of 16, each block is scanned left to right, the block totals
+    are scanned the same way (recursively), and each block's exclusive
+    offset is added last. Only f32 adds, so either device gives the same
+    bits (torch.cumsum accumulates in f64 on the CPU and by a tree on the
+    card)."""
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        out = x.clone()
+        for k in range(1, n):
+            out[..., k] += out[..., k - 1]
+        return out
+    nb = -(-n // _SCAN_BLOCK)
+    blocks = F.pad(x, (0, nb * _SCAN_BLOCK - n)).reshape(x.shape[:-1] + (nb, _SCAN_BLOCK))
+    inner = _block_scan(blocks)
+    offset = F.pad(_block_scan(inner[..., -1])[..., :-1], (1, 0))
+    return (inner + offset[..., None]).reshape(x.shape[:-1] + (nb * _SCAN_BLOCK,))[..., :n]
+
+
+def box_sum_integral(img: torch.Tensor, ksize: int, xla_order: bool = False) -> torch.Tensor:
+    """(2r+1)^2 un-normalized box sum via two prefix sums; zero outside.
+    `xla_order` sums in eager JAX's order (bit-equal to the JAX function;
+    about 40 small launches per axis where torch.cumsum takes one)."""
     r = ksize // 2
     h, w = img.shape[-2:]
     x = F.pad(img.to(torch.float32), (r + 1, r, r + 1, r))
-    ii = torch.cumsum(torch.cumsum(x, dim=-1), dim=-2)
+    if xla_order:
+        ii = _block_scan(_block_scan(x).transpose(-1, -2)).transpose(-1, -2)
+    else:
+        ii = torch.cumsum(torch.cumsum(x, dim=-1), dim=-2)
     a = ii[..., :h, :w]
     b = ii[..., :h, ksize:]
     c = ii[..., ksize:, :w]
@@ -109,12 +138,15 @@ def sobel_derivatives(img: torch.Tensor, ksize: int = 3) -> tuple[torch.Tensor, 
 
 def min_eig_response(img: torch.Tensor, block_size: int = 3) -> torch.Tensor:
     """cv::cornerMinEigenVal analog: the smaller eigenvalue of the
-    block-summed structure tensor of 3x3 Sobel derivatives."""
+    block-summed structure tensor of 3x3 Sobel derivatives; bit-equal to
+    eager JAX (the block sums in its order)."""
     ix, iy = sobel_derivatives(img)
-    a = box_sum_integral(ix * ix, block_size) * 0.5
-    c = box_sum_integral(iy * iy, block_size) * 0.5
-    b = box_sum_integral(ix * iy, block_size) * 0.5
-    return (a + c) - torch.sqrt((a - c) * (a - c) + b * b)
+    prods = torch.stack([ix * ix, iy * iy, ix * iy])
+    a, c, b = box_sum_integral(prods, block_size, xla_order=True) * 0.5
+    # f64 sqrt rounded to f32 is the correctly rounded f32 sqrt on either
+    # device (torch's vectorized f32 sqrt on the CPU is not, XLA's is)
+    root = torch.sqrt(((a - c) * (a - c) + b * b).double()).to(torch.float32)
+    return (a + c) - root
 
 
 def _interp_taps(n_out: int, n_in: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -142,10 +174,12 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 
 
 def harris_response(
-    img: torch.Tensor, block_size: int = 7, k: float = 0.04, deriv: str = "harris_orb"
+    img: torch.Tensor, block_size: int = 7, k: float = 0.04, deriv: str = "harris_orb",
+    xla_order: bool = False,
 ) -> torch.Tensor:
     """Per-pixel Harris response det(M) - k tr(M)^2. `harris_orb`: central
-    differences and an un-weighted block sum, as ORB's HarrisResponses."""
+    differences and an un-weighted block sum, as ORB's HarrisResponses.
+    `xla_order`: block sums in eager JAX's order (see box_sum_integral)."""
     if deriv == "harris_orb":
         dfilt = np.array([-1.0, 0.0, 1.0], np.float32)
         one = np.array([1.0], np.float32)
@@ -153,9 +187,9 @@ def harris_response(
         iy = sep_filter2d(img, dfilt, one)
     else:
         ix, iy = sobel_derivatives(img)
-    sxx = box_sum_integral(ix * ix, block_size)
-    syy = box_sum_integral(iy * iy, block_size)
-    sxy = box_sum_integral(ix * iy, block_size)
+    sxx = box_sum_integral(ix * ix, block_size, xla_order)
+    syy = box_sum_integral(iy * iy, block_size, xla_order)
+    sxy = box_sum_integral(ix * iy, block_size, xla_order)
     det = sxx * syy - sxy * sxy
     tr = sxx + syy
     return det - k * tr * tr

@@ -35,7 +35,8 @@ def good_features_to_track(
     dev = img.device
     h, w = img.shape
     if use_harris:
-        resp = imgproc.harris_response(img, block_size, harris_k, deriv="sobel")
+        resp = imgproc.harris_response(img, block_size, harris_k, deriv="sobel",
+                                        xla_order=True)
     else:
         resp = imgproc.min_eig_response(img, block_size)
     peak = imgproc.nms_2d(resp)

@@ -134,15 +134,12 @@ class _Tmpl(NamedTuple):
         return _Tmpl(*(x[sel] for x in self))
 
 
-def _level_templates(prev_img, dx, dy, base_pts, cfg: LKConfig,
-                     use_kernel: bool | None = None) -> _Tmpl:
+def _level_templates(prev_img, dx, dy, base_pts, cfg: LKConfig) -> _Tmpl:
     """Template windows of (image, dx, dy) at base_pts, then G and the gate."""
     win = cfg.win_size
     area = float(win * win)
     h, w = prev_img.shape
-    if use_kernel is None:
-        use_kernel = _use_sampler_kernel(h, w, win)
-    if use_kernel:
+    if _use_sampler_kernel(h, w, win):
         iw, ix, iy = lk_sample.sample_templates(prev_img, dx, dy, base_pts, win)
     else:
         iw, ix, iy = _sample_at(torch.stack([prev_img, dx, dy]), base_pts, win)
@@ -230,12 +227,9 @@ def _patch_origin(guess_pts, h: int, w: int):
     return jy0, jx0, torch.stack([jx0, jy0], dim=-1).to(F32)
 
 
-def _patch_iterate(t: _Tmpl, next_patch, joff, guess_pts, next_img, cfg: LKConfig,
-                   use_kernel: bool | None = None):
+def _patch_iterate(t: _Tmpl, next_patch, joff, guess_pts, next_img, cfg: LKConfig):
     """Newton loops on the cached patch, then one f32 polish step on the
     full image (K4 under the gate). Returns (guess, min_eig, residual)."""
-    if use_kernel is None:
-        use_kernel = _use_sampler_kernel(next_img.shape[0], next_img.shape[1], cfg.win_size)
     win = cfg.win_size
     p = _PATCH
     half = win // 2
@@ -259,7 +253,7 @@ def _patch_iterate(t: _Tmpl, next_patch, joff, guess_pts, next_img, cfg: LKConfi
     g_loc = _iterate(t, clamp_local(guess_pts - joff), sample_j, cfg, clamp=clamp_local)
 
     guess = g_loc + joff
-    if use_kernel:
+    if _use_sampler_kernel(next_img.shape[0], next_img.shape[1], win):
         jw = lk_sample.sample_single(next_img, guess, win)
     else:
         jw = _sample_at(next_img[None], guess, win)[0]
@@ -274,15 +268,14 @@ def _track_level_patch(prev_img, next_img, dx, dy, base_pts, guess_pts, cfg: LKC
     equal the exact bf16 gather), Newton steps inside the patch, polish.
     Returns (guess, min_eig, residual)."""
     h, w = prev_img.shape
-    use_kernel = _use_sampler_kernel(h, w, cfg.win_size)
-    t = _level_templates(prev_img, dx, dy, base_pts, cfg, use_kernel=use_kernel)
+    t = _level_templates(prev_img, dx, dy, base_pts, cfg)
     jy0, jx0, joff = _patch_origin(guess_pts, h, w)
-    if use_kernel:
+    if _use_sampler_kernel(h, w, cfg.win_size):
         ctr = torch.stack([jx0, jy0], dim=-1).to(F32) + float(_PATCH // 2)
         next_patch = lk_sample.sample_single(next_img, ctr, _PATCH).to(BF16).to(F32)
     else:
         next_patch = _extract_patches(next_img.to(BF16)[None], jy0, jx0, _PATCH)[0]
-    return _patch_iterate(t, next_patch, joff, guess_pts, next_img, cfg, use_kernel=use_kernel)
+    return _patch_iterate(t, next_patch, joff, guess_pts, next_img, cfg)
 
 
 def _dense_iterate(t: _Tmpl, next_img, guess_pts, cfg: LKConfig):
@@ -381,36 +374,17 @@ def calc_optical_flow_pyr_lk_pairs(stacked_pyrs, pts, pts_valid=None,
                                    cfg: LKConfig = LKConfig()):
     """Track every consecutive frame pair of a clip: stacked_pyrs is
     `build_flow_pyramid` of frames [F, H, W]; pts [F-1, N, 2] are points in
-    frame t to track into frame t+1, pts_valid [F-1, N].
+    frame t to track into frame t+1, pts_valid [F-1, N]. Returns stacked
+    (new_pts [F-1, N, 2], status [F-1, N], err [F-1, N]).
 
-    The JAX function builds every pair's templates and patches with the
-    stacked levels as loop-invariant operands (a vmap, with the XLA
-    sampler) and runs the Newton loops in a scan over pairs. Here a loop
-    over pairs does both, with the same samplers: templates and patches
-    by the dense sampler and the exact gather, the polish by K4 under the
-    gate."""
-    lvl0 = stacked_pyrs[0][0]
-    h, w = lvl0.shape[1:]
-    pts, pts_valid = _as_points(pts, pts_valid, lvl0.device)
-    n_pairs = pts.shape[0]
-    top = cfg.n_levels - 1
-    guess = pts / (2.0 ** top)
-    res = me = None
-    for lvl in range(top, -1, -1):
-        imgs, dxs, dys = stacked_pyrs[lvl]
-        lh, lw = imgs.shape[1:]
-        base = pts / (2.0 ** lvl)
-        outs = []
-        for i in range(n_pairs):
-            t = _level_templates(imgs[i], dxs[i], dys[i], base[i], cfg, use_kernel=False)
-            if _use_patch(lh, lw):
-                jy0, jx0, joff = _patch_origin(guess[i], lh, lw)
-                pat = _extract_patches(imgs[i + 1].to(BF16)[None], jy0, jx0, _PATCH)[0]
-                outs.append(_patch_iterate(t, pat, joff, guess[i], imgs[i + 1], cfg))
-            else:
-                outs.append(_dense_iterate(t, imgs[i + 1], guess[i], cfg))
-        guess, me, res = (torch.stack(x) for x in zip(*outs))
-        if lvl > 0:
-            guess = guess * 2.0
-    status = pts_valid & (me > cfg.min_eig_threshold)
-    return guess, status & _inside(guess, h, w), res
+    The JAX function vmaps the templates and patches over the pairs (with
+    the XLA sampler: a Pallas call does not vmap) and scans the Newton
+    loops. Pairs carry no state, so here a loop runs the pyramid-reuse
+    path on each pair, with its samplers."""
+    pts, pts_valid = _as_points(pts, pts_valid, stacked_pyrs[0][0].device)
+    outs = []
+    for i in range(pts.shape[0]):
+        prev = tuple(tuple(a[i] for a in lvl) for lvl in stacked_pyrs)
+        nxt = tuple(tuple(a[i + 1] for a in lvl) for lvl in stacked_pyrs)
+        outs.append(calc_optical_flow_pyr_lk_pyr(prev, nxt, pts[i], pts_valid[i], cfg))
+    return tuple(torch.stack(x) for x in zip(*outs))

@@ -143,6 +143,24 @@ def test_lk_path_on_card_equals_cpu(card):
 
 
 @pytest.mark.cuda
+def test_gftt_on_card_equals_cpu(card):
+    """The min-eigenvalue response sums in one fixed order of f32 adds, so
+    the card's corners are the CPU's bit for bit."""
+    from opencv_tpu_torch.ops import gftt
+
+    rng = np.random.default_rng(4)
+    img = np.kron(rng.uniform(0, 255, (120, 160)).astype(np.float32), np.ones((4, 4), np.float32))
+    img = lk.imgproc.gaussian_blur(torch.from_numpy(img), 5, 1.2)
+    assert torch.equal(lk.imgproc.min_eig_response(img.to(card)).cpu(),
+                       lk.imgproc.min_eig_response(img))
+    cpu = gftt.good_features_to_track(img, 512, 0.01, 7.0, device="cpu")
+    gpu = gftt.good_features_to_track(img, 512, 0.01, 7.0, device=card)
+    assert int(cpu.valid.sum()) > 100
+    for name in ("xy", "response", "valid"):
+        assert torch.equal(getattr(cpu, name), getattr(gpu, name).cpu())
+
+
+@pytest.mark.cuda
 def test_wrappers_count_launches(card):
     cuda_ops.reset_launch_counts()
     x = torch.zeros((32, 32), device=card)

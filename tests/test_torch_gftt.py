@@ -1,19 +1,10 @@
 """goodFeaturesToTrack of the PyTorch port (ops/gftt.py) against the JAX
 package on the CPU, on the checker image and on a rendered frame.
 
-The corner response sums its structure tensor with prefix sums
-(`box_sum_integral`), which XLA (blocks of 16, then the block totals) and
-PyTorch accumulate in different orders: the min-eigenvalue response
-differs by up to 1.2e-4 of its largest value (measured: 96 on 8.3e5).
-Where two neighbouring pixels or a pixel and the quality threshold are
-that close, NMS or the threshold can pick the other one. Measured: the
-300 strongest corners at min distance 7 are equal on both images; in the
-other cases (the LK path's 512 corners among them) 0 to 3 corners of 205
-to 869 differ. So the test holds the set equal where it was measured
-equal, and elsewhere allows 1 % + 2 corners to differ; every shared corner's
-response lies within 2e-4 of the largest response. Corners whose
-responses are that close may swap places in the strength order, so sets
-are compared, not orders.
+The corner response is bit-equal to eager JAX: its block sums run in the
+order XLA's CPU backend gives jnp.cumsum (blocks of 16, then the block
+totals), and its square root is correctly rounded, as XLA's is. So the
+corners, their order, their responses and the valid mask are equal.
 """
 
 import jax.numpy as jnp
@@ -44,33 +35,46 @@ def _corners(kp):
 
 
 @pytest.mark.parametrize("name", ["checker", "frame"])
-@pytest.mark.parametrize("kw,exact", [
-    (dict(max_corners=300, min_distance=7.0), True),
-    (dict(max_corners=512, min_distance=7.0, quality_level=0.01), False),
-    (dict(max_corners=1000, min_distance=10.0), False),
-    (dict(max_corners=2000, min_distance=0.0), False),
-    (dict(max_corners=200, min_distance=7.0, use_harris=True), False),
+@pytest.mark.parametrize("kw", [
+    dict(max_corners=300, min_distance=7.0),
+    dict(max_corners=512, min_distance=7.0, quality_level=0.01),
+    dict(max_corners=1000, min_distance=10.0),
+    dict(max_corners=2000, min_distance=0.0),
+    dict(max_corners=200, min_distance=7.0, use_harris=True),
 ], ids=["grid7", "lk_path", "grid10_all", "no_grid", "harris"])
-def test_same_corners_as_jax(images, name, kw, exact):
+def test_same_corners_as_jax(images, name, kw):
     img = images[name]
-    want, v_j = _corners(jgftt.good_features_to_track(jnp.asarray(img), **kw))
-    got, v_t = _corners(tgftt.good_features_to_track(img, device="cpu", **kw))
-    assert len(want) > 20
-    if exact:
-        np.testing.assert_array_equal(v_t, v_j)
-        assert set(got) == set(want)
-    else:
-        assert len(set(got) ^ set(want)) <= 0.01 * len(want) + 2
-    scale = max(abs(r) for r in want.values())
-    for p in set(got) & set(want):
-        assert abs(got[p] - want[p]) <= 2e-4 * scale, (p, got[p], want[p])
+    want = jgftt.good_features_to_track(jnp.asarray(img), **kw)
+    got = tgftt.good_features_to_track(img, device="cpu", **kw)
+    assert np.asarray(want.valid).sum() > 20
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(got.xy.numpy(), np.asarray(want.xy))
+    np.testing.assert_array_equal(got.response.numpy(), np.asarray(want.response))
 
 
 def test_min_eig_response_within_prefix_sum_rounding(images):
     img = images["frame"]
     want = np.asarray(jimg.min_eig_response(jnp.asarray(img)))
     got = timg.min_eig_response(torch.from_numpy(img)).numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4 * np.abs(want).max())
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 7, 16, 17, 100, 257, 645, 4100])
+def test_block_scan_is_xla_cumsum(rng, n):
+    x = (rng.standard_normal((3, n)) * 1000).astype(np.float32)
+    want = np.asarray(jnp.cumsum(jnp.asarray(x), axis=-1))
+    np.testing.assert_array_equal(timg._block_scan(torch.from_numpy(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("ksize", [3, 5, 7])
+def test_box_sums_in_xla_order_bit_equal(images, ksize):
+    img = images["frame"]
+    np.testing.assert_array_equal(
+        timg.box_sum_integral(torch.from_numpy(img), ksize, xla_order=True).numpy(),
+        np.asarray(jimg.box_sum_integral(jnp.asarray(img), ksize)))
+    np.testing.assert_array_equal(
+        timg.harris_response(torch.from_numpy(img), ksize, deriv="sobel", xla_order=True).numpy(),
+        np.asarray(jimg.harris_response(jnp.asarray(img), ksize, deriv="sobel")))
 
 
 def test_record_layout_and_default_device(images, monkeypatch):

@@ -6,7 +6,8 @@ the LK pyramid (the same tap order in `sep_filter2d`), the interpolation
 weights, the dense sampler in f32 and in bf16, and the patch gather. The
 template sums of G run in another order than XLA's: asserted at rtol 1e-5
 and 1e-6 of the sums' scale.
-Tracked points are held to JAX at 0.05 px on points that pass the gate:
+Tracked points (also of the pairs form, on the same stacked pyramids) are
+held to JAX at 0.05 px on points that pass the gate:
 JAX runs its step loops compiled, where XLA fuses multiply-adds, so the
 two packages' iterations part in the last bits and may stop one step
 apart within the 0.01 px eps (measured: <= 2e-5 px after the polish).
@@ -113,13 +114,16 @@ def _tpu_rule(monkeypatch):
 
 
 @pytest.mark.parametrize("kernel", [False, True])
-def test_level_templates(rng, kernel):
+def test_level_templates(rng, monkeypatch, kernel):
+    """Templates, G and the gate, sampled densely or by K4's plain version
+    (the port's gate forced either way on this small level)."""
+    monkeypatch.setattr(tlk, "_use_sampler_kernel", lambda h, w, win: kernel)
     img = _textured(rng)
     dx, dy = jimg.scharr_derivatives(jnp.asarray(img))
     pts = np.stack([rng.uniform(0, 159, 64), rng.uniform(0, 119, 64)], -1).astype(np.float32)
     jt = jlk._level_templates(jnp.asarray(img), dx, dy, jnp.asarray(pts), JLKConfig(),
                               use_pallas=kernel, _pallas_interpret=True)
-    tt = tlk._level_templates(_t(img), _t(dx), _t(dy), _t(pts), LKConfig(), use_kernel=kernel)
+    tt = tlk._level_templates(_t(img), _t(dx), _t(dy), _t(pts), LKConfig())
     np.testing.assert_array_equal(tt.ok.numpy(), np.asarray(jt.ok))
     for name in ("iw", "ix", "iy"):
         np.testing.assert_allclose(getattr(tt, name).numpy(), np.asarray(getattr(jt, name)),
@@ -235,13 +239,9 @@ def test_lk_identity_and_invalid_points(rng):
     assert te[:2].max() < 1.0
 
 
-@pytest.mark.parametrize("shape", [(120, 160), (304, 320)])
-def test_pairs_match_sequential(rng, shape):
-    """Every pair of a clip at once (`_pairs`) against the pyramid-reuse
-    chain pair by pair. At 120x160 both sample densely and agree bit for
-    bit; at 304x320 level 0 takes the patch path, where the pairs path
-    samples templates and patches with the dense sampler and the chain
-    with K4's plain version (last-bit differences)."""
+def _pairs_case(rng, shape):
+    """A 4-frame clip moving (2, 1) px per frame, its stacked pyramids
+    (win 11, 2 levels) and 32 points per pair, ~10 % invalid."""
     h, w = shape
     cfg = LKConfig(win_size=11, n_levels=2)
     base = _textured(rng, h, w)
@@ -249,21 +249,42 @@ def test_pairs_match_sequential(rng, shape):
     pts = np.stack([np.stack([rng.uniform(20, w - 20, 32), rng.uniform(20, h - 20, 32)], -1)
                     for _ in range(3)]).astype(np.float32)
     valid = rng.random((3, 32)) > 0.1
-    stacked = tlk.build_flow_pyramid(frames, cfg, device="cpu")
+    return frames, pts, valid, cfg, tlk.build_flow_pyramid(frames, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("shape", [(120, 160), (304, 320)])
+def test_pairs_match_sequential(rng, shape):
+    """Every pair of a clip at once (`_pairs`) against the pyramid-reuse
+    chain pair by pair: the same samplers, so bit for bit at both sizes
+    (304x320's level 0 takes the patch path and K4's sites)."""
+    frames, pts, valid, cfg, stacked = _pairs_case(rng, shape)
     new_b, st_b, err_b = tlk.calc_optical_flow_pyr_lk_pairs(stacked, pts, valid, cfg)
     assert new_b.shape == (3, 32, 2) and st_b.shape == err_b.shape == (3, 32)
     pyrs = [tlk.build_flow_pyramid(f, cfg, device="cpu") for f in frames]
     for i in range(3):
-        new_s, st_s, _ = tlk.calc_optical_flow_pyr_lk_pyr(pyrs[i], pyrs[i + 1], pts[i], valid[i],
-                                                          cfg)
+        new_s, st_s, err_s = tlk.calc_optical_flow_pyr_lk_pyr(pyrs[i], pyrs[i + 1], pts[i],
+                                                              valid[i], cfg)
         np.testing.assert_array_equal(st_b[i].numpy(), st_s.numpy())
+        np.testing.assert_array_equal(new_b[i].numpy(), new_s.numpy())
+        np.testing.assert_array_equal(err_b[i].numpy(), err_s.numpy())
         st = st_s.numpy()
-        if h * w < 90_000:
-            np.testing.assert_array_equal(new_b[i].numpy()[st], new_s.numpy()[st])
-        else:
-            np.testing.assert_allclose(new_b[i].numpy()[st], new_s.numpy()[st], atol=1e-3)
         flow = new_s.numpy()[st] - pts[i][st]
         np.testing.assert_allclose(flow, np.broadcast_to([2.0, 1.0], flow.shape), atol=0.1)
+
+
+@pytest.mark.parametrize("shape", [(120, 160), (304, 320)])
+def test_pairs_match_jax(rng, shape):
+    """The port's `_pairs` against JAX's on the same stacked pyramids: the
+    same status, tracked points within 0.05 px."""
+    _, pts, valid, cfg, stacked = _pairs_case(rng, shape)
+    new_t, st_t, _ = tlk.calc_optical_flow_pyr_lk_pairs(stacked, pts, valid, cfg)
+    j_pyrs = tuple(tuple(_j(a) for a in lvl) for lvl in stacked)
+    new_j, st_j, _ = jlk.calc_optical_flow_pyr_lk_pairs(j_pyrs, _j(pts), _j(valid),
+                                                        JLKConfig(**cfg.__dict__))
+    st = st_t.numpy()
+    assert st.sum() >= 60
+    np.testing.assert_array_equal(st, np.asarray(st_j))
+    np.testing.assert_allclose(new_t.numpy()[st], np.asarray(new_j)[st], rtol=0, atol=0.05)
 
 
 def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
