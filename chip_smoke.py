@@ -6,15 +6,18 @@ Phases:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: every kernel of csrc/ with nvcc for sm_90a, all in parallel;
   3. kernels vs plain on the card, at the shapes the main paths give them:
-     K1 FAST score + NMS at the 8 ORB levels of a 480x640 frame, K2 FAST
-     score for rings 16/12/8, K3 streaming 2-NN Hamming at 2000 x 128000
-     with ties and ~10% invalid rows, K4 LK window sampling at its three
-     sites on the 480x640 level (templates C=3 win 21, patches C=1 win 48
-     at integer origins, polish C=1 win 21; N = 2000 and 512, with points
-     on every border, outside, far outside and non-finite), K5 edge-clamped
-     windows (win 21, N = 512, interior points); all exact; device times
-     by CUDA events (kernel, plain version, one PyTorch library call where
-     one computes the same function) beside the bound;
+     K1 FAST score + NMS at the 8 ORB levels of a 480x640 frame (timed as
+     the one multi-level launch ORB makes, and per level through the
+     one-level entry), K2 FAST score for rings 16/12/8, K3 streaming 2-NN
+     Hamming at 2000 x 128000 with ties and ~10% invalid rows, K4 LK window
+     sampling at its three sites on the 480x640 level (templates C=3 win
+     21, patches C=1 win 48 at integer origins, polish C=1 win 21; N = 2000
+     and 512, with points on every border, outside, far outside and
+     non-finite; each site timed beside grid_sample and its bound), K5
+     edge-clamped windows (win 21, N = 512, interior points); all exact;
+     device times by CUDA events (kernel, plain version, one PyTorch
+     library call where one computes the same function) beside the bound,
+     and the first designs' times as labelled constants (FIRST_DESIGN_MS);
   4. the three paths, each with the launch counts reset just before a
      warm run and read just after it:
      a. ORB VO: VisualOdometry.process_sequence on a seeded 480x640
@@ -62,6 +65,15 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_ADD_PER_CLK_PER_SM = 128  # FADD; f32 min/max (FMNMX) issue no faster
 POPC_PER_CLK_PER_SM = 16  # 32-bit __popc
 
+# Device ms of the first designs of K1/K2 (one launch per level, runtime
+# arc) and K4/K5 (one block per point), measured by this script before
+# their redesign on an NVIDIA H100 80GB HBM3 at 700.00 W. Constants, not
+# re-measured (the old kernels are gone): printed, labelled, in the [K…]
+# lines beside this run's times, and kept out of the measured `kernels`
+# record.
+FIRST_DESIGN_MS = {"fast_corners": 0.1119, "fast_score": 0.0179, "lk_sample": 0.0601,
+                   "lk_sample_n512": 0.0232, "lk_sample_clamp": 0.0044}
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -69,12 +81,16 @@ def fail(msg: str) -> None:
 
 
 def fast_score_ops(pattern: int = 16, arc: int = 9) -> int:
-    """Least f32 operations per pixel of the FAST score: `pattern` tap
-    differences, the circular window minimum (bright) and maximum (dark)
-    of length `arc` by doubling, the max (bright) and min (dark) over the
-    `pattern` starts, one negate and the final max."""
-    doublings = arc.bit_length() - 1 + bin(arc).count("1") - 1
-    return pattern + 2 * pattern * doublings + 2 * (pattern - 1) + 2
+    """Least f32 operations per pixel of the FAST score, as csrc/fast.cu
+    takes it: `pattern` tap differences; per sign (bright: window minima,
+    dark: window maxima) the windows of arc-1 taps at the pattern/2 odd
+    starts by doubling, one max and one min per pair of starts that share
+    such a window, and a tree over the pairs; one negate and the final
+    max."""
+    inner = arc - 1
+    stages = inner.bit_length() - 1 + bin(inner).count("1") - 1
+    per_sign = pattern // 2 * stages + pattern + pattern // 2 - 1
+    return pattern + 2 * per_sign + 2
 
 
 def max_abs_err(*pairs) -> float:
@@ -212,38 +228,50 @@ def phase_kernels(frame0: np.ndarray, rates: dict) -> dict:
     rows = {}
     dev = torch.device("cuda")
 
-    # K1: FAST score + NMS at the 8 ORB level shapes of a 480x640 frame
+    # K1: FAST score + NMS at the 8 ORB levels of a 480x640 frame: the
+    # multi-level entry (one launch, as ORB detects) and the one-level entry
     pyr = pyramid.build_pyramid(torch.from_numpy(frame0).to(dev), 8, 1.2)
-    k_ms = p_ms = bytes_ = ops = err1 = 0.0
-    for lvl in pyr.levels:
+    levels = list(pyr.levels)
+    multi = fast_kernel.fast_corners_levels(levels, 20.0)
+    p_ms = bytes_ = ops = err1 = 0.0
+    per_level = []
+    for lvl, (s_m, n_m) in zip(levels, multi):
         s_k, n_k = fast_kernel.fast_corners_cuda(lvl, 20.0)
         s_p, n_p = fast_kernel.fast_corners_plain(lvl, 20.0)
         torch.cuda.synchronize()
-        err1 = max(err1, max_abs_err((s_k, s_p), (n_k, n_p)))
-        if not (torch.equal(s_k, s_p) and torch.equal(n_k, n_p)):
-            bad = (s_k != s_p).sum().item() + (n_k != n_p).sum().item()
-            fail(f"K1 differs from its plain version at {tuple(lvl.shape)}: {bad} values")
-        k_ms += device_time_ms(lambda: fast_kernel.fast_corners_cuda(lvl, 20.0))
-        p_ms += device_time_ms(lambda: fast_kernel.fast_corners_plain(lvl, 20.0), calls=3)
+        err1 = max(err1, max_abs_err((s_k, s_p), (n_k, n_p), (s_m, s_p), (n_m, n_p)))
+        for how, s_x, n_x in (("one-level", s_k, n_k), ("multi-level", s_m, n_m)):
+            if not (torch.equal(s_x, s_p) and torch.equal(n_x, n_p)):
+                bad = (s_x != s_p).sum().item() + (n_x != n_p).sum().item()
+                fail(f"K1 ({how}) differs from its plain version at {tuple(lvl.shape)}: {bad} values")
+        per_level.append(device_time_ms(lambda lvl=lvl: fast_kernel.fast_corners_cuda(lvl, 20.0)))
+        p_ms += device_time_ms(lambda lvl=lvl: fast_kernel.fast_corners_plain(lvl, 20.0), calls=3)
         npx = lvl.numel()
         bytes_ += npx * 4 * 3  # read the level, write score and nms
         ops += npx * (fast_score_ops(16, 9) + 1 + 8)  # score, threshold, 8 NMS compares
+    k_ms = device_time_ms(lambda: fast_kernel.fast_corners_levels(levels, 20.0))
+    bound1 = max(bytes_ / HBM_BYTES_PER_S, ops / rates["fp32_add"]) * 1e3
     rows["fast_corners"] = dict(
-        name="fast_corners (K1: FAST-16 arc-9 score + threshold + border + 3x3 NMS)",
+        name="fast_corners (K1: FAST-16 arc-9 score + threshold + border + 3x3 NMS; "
+             "the 8 levels of a frame in one launch)",
         route="cuda", source="opencv_tpu_torch/csrc/fast.cu",
         replaces="opencv_tpu/ops/pallas/fast_kernel.py:92",
-        max_abs_err=err1, ms=k_ms, plain_ms=p_ms, library_ms=None,
-        bound_ms=max(bytes_ / HBM_BYTES_PER_S, ops / rates["fp32_add"]) * 1e3,
+        max_abs_err=err1, ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=bound1,
         bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= ops / rates["fp32_add"] else "operations",
-        shapes=[tuple(l.shape) for l in pyr.levels],
+        shapes=[tuple(l.shape) for l in levels], one_level_ms=per_level,
+        one_level_sum_ms=sum(per_level),
     )
-    print(f"[K1] exact at 8 levels; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms per frame "
-          f"(sum of levels)", flush=True)
+    print("[K1] one-level entry per level: " + ", ".join(
+        f"{l.shape[0]}x{l.shape[1]} {t:.4f} ms" for l, t in zip(levels, per_level)), flush=True)
+    print(f"[K1] exact at 8 levels (multi-level and one-level entries); 8 levels in one launch "
+          f"{k_ms:.4f} ms (first design, a constant: {FIRST_DESIGN_MS['fast_corners']} ms in "
+          f"eight launches), one-level calls summed {sum(per_level):.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"{bound1:.5f} ms ({rows['fast_corners']['bound_by']})", flush=True)
 
     # K2: score only, rings 16/12/8 and several arcs, at level 0
     lvl0 = pyr.levels[0]
     err2 = 0.0
-    for pattern, arc in ((16, 9), (16, 12), (12, 9), (12, 12), (8, 5), (8, 8)):
+    for pattern, arc in ((16, 9), (16, 12), (12, 7), (12, 9), (8, 5), (8, 8)):
         a = fast_kernel.fast_score_cuda(lvl0, arc, pattern)
         b = fast_kernel.fast_score_plain(lvl0, arc, pattern)
         torch.cuda.synchronize()
@@ -264,8 +292,8 @@ def phase_kernels(frame0: np.ndarray, rates: dict) -> dict:
         bound_by="bytes" if b2 / HBM_BYTES_PER_S >= o2 / rates["fp32_add"] else "operations",
         shapes=[tuple(lvl0.shape)],
     )
-    print(f"[K2] exact for rings 16/12/8; kernel {k2_ms:.4f} ms, plain {k2_pl:.4f} ms "
-          f"at 480x640", flush=True)
+    print(f"[K2] exact for rings 16/12/8; kernel {k2_ms:.4f} ms (first design, a "
+          f"constant: {FIRST_DESIGN_MS['fast_score']} ms), plain {k2_pl:.4f} ms at 480x640", flush=True)
 
     # K3: streaming 2-NN at the retrieval shape, with ties and invalid rows
     g = torch.Generator(device=dev)
@@ -384,7 +412,7 @@ def phase_lk_kernels(lvl0, rates: dict) -> dict:
     per_n = {}
     err4 = 0.0
     for n in (2000, 512):
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0, sites={})
         for name, chans, win, integer in sites:
             pts = lk_points(n, h, w, win, seed=n + win)
             if integer:
@@ -405,23 +433,33 @@ def phase_lk_kernels(lvl0, rates: dict) -> dict:
                                 align_corners=True).reshape(len(chans), n, win, win)
             lib_err = float((lib - got).abs().max())
             c = len(chans)
-            tot["ms"] += device_time_ms(lambda: lk_sample.sample_channels(chans, p, win))
-            tot["plain_ms"] += device_time_ms(
-                lambda: lk_sample.sample_channels_plain(torch.stack(chans), p, win), calls=3)
-            tot["library_ms"] += device_time_ms(
-                lambda: F.grid_sample(stack, grid, mode="bilinear", padding_mode="zeros",
-                                      align_corners=True))
-            tot["bytes"] += c * touched_pixels(pts, win, h, w) * 4 + n * 8 + c * n * win * win * 4
-            tot["ops"] += c * n * win * win * 7 + n * 12  # 4 mul + 3 add per output; weights
+            site = dict(
+                ms=device_time_ms(lambda: lk_sample.sample_channels(chans, p, win)),
+                plain_ms=device_time_ms(
+                    lambda: lk_sample.sample_channels_plain(torch.stack(chans), p, win), calls=3),
+                library_ms=device_time_ms(
+                    lambda: F.grid_sample(stack, grid, mode="bilinear", padding_mode="zeros",
+                                          align_corners=True)),
+                bytes=c * touched_pixels(pts, win, h, w) * 4 + n * 8 + c * n * win * win * 4,
+                ops=c * n * win * win * 7 + n * 12,  # 4 mul + 3 add per output; weights
+            )
+            site["bound_ms"] = max(site["bytes"] / HBM_BYTES_PER_S,
+                                   site["ops"] / rates["fp32_add"]) * 1e3
+            for k in ("ms", "plain_ms", "library_ms", "bytes", "ops"):
+                tot[k] += site[k]
+            tot["sites"][name] = dict(site, c=c, win=win)
             print(f"[K4] {name} C={c} win {win} N={n}: exact ({int(np.isfinite(pts).all(1).sum())} "
-                  f"finite points); grid_sample differs by {lib_err:.3g}", flush=True)
+                  f"finite points); kernel {site['ms']:.4f} ms, grid_sample {site['library_ms']:.4f} "
+                  f"ms (differs by {lib_err:.3g}), bound {site['bound_ms']:.5f} ms, plain "
+                  f"{site['plain_ms']:.4f} ms", flush=True)
         tot["bound_ms"] = max(tot["bytes"] / HBM_BYTES_PER_S, tot["ops"] / rates["fp32_add"]) * 1e3
         tot["bound_by"] = ("bytes" if tot["bytes"] / HBM_BYTES_PER_S >= tot["ops"] / rates["fp32_add"]
                            else "operations")
         per_n[n] = tot
-        print(f"[K4] three sites, N={n}: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
-              f"grid_sample {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
-              f"({tot['bound_by']})", flush=True)
+        old = FIRST_DESIGN_MS["lk_sample" if n == 2000 else "lk_sample_n512"]
+        print(f"[K4] three sites, N={n}: kernel {tot['ms']:.4f} ms (first design, a constant: "
+              f"{old} ms), plain {tot['plain_ms']:.4f} ms, grid_sample {tot['library_ms']:.4f} ms, bound "
+              f"{tot['bound_ms']:.4f} ms ({tot['bound_by']})", flush=True)
     t = per_n[2000]
     rows = {"lk_sample": dict(
         name="lk_sample (K4: bilinear LK windows of C channels, zero outside the image; "
@@ -431,7 +469,9 @@ def phase_lk_kernels(lvl0, rates: dict) -> dict:
         max_abs_err=err4, ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
         shapes=[[len(ch), h, w, 2000, win] for _, ch, win, _ in sites],
-        at_n512={k: per_n[512][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        sites=t["sites"],
+        at_n512={k: per_n[512][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                            "sites")},
     )}
 
     # K5: edge-clamped single-channel windows, its documented domain
@@ -461,8 +501,9 @@ def phase_lk_kernels(lvl0, rates: dict) -> dict:
         bound_by="bytes" if b5 / HBM_BYTES_PER_S >= o5 / rates["fp32_add"] else "operations",
         shapes=[[1, h, w, n, win]],
     )
-    print(f"[K5] exact at N={n} win {win}; kernel {k5_ms:.4f} ms, plain {k5_pl:.4f} ms, "
-          f"grid_sample (border) {k5_lib:.4f} ms", flush=True)
+    print(f"[K5] exact at N={n} win {win}; kernel {k5_ms:.4f} ms (first design, a "
+          f"constant: {FIRST_DESIGN_MS['lk_sample_clamp']} ms), plain {k5_pl:.4f} ms, grid_sample (border) "
+          f"{k5_lib:.4f} ms", flush=True)
     return rows
 
 

@@ -5,9 +5,28 @@ K1 `_fast_nms_strip_kernel` (fast_corners_pallas) and K2
 `_fast_strip_kernel` (fast_score_pallas). The kernel covers rings of 16,
 12 and 8 taps and any arc length; the border cut is the ring radius.
 
-Bound and design: see the note at the top of csrc/fast.cu (one thread per
-pixel over a shared-memory tile with a 4-pixel halo; about 12 MB moved for
-the 8 ORB levels of a 480x640 frame).
+Entry points on the card: `fast_corners_levels` (K1 over every level of
+a pyramid in one launch, as ORB detects), `fast_corners_cuda` (K1 on one
+image) and `fast_score_cuda` (K2), all one kernel.
+
+Design: the default arcs (16/9, 12/7, 8/5) are compiled in and take the
+window minima by doubling, at the odd starts only (two starts share a
+window of arc-1 taps); other arcs a generic instantiation. The ring's
+offsets are constants. A block of 256 threads scores a 32x32 tile plus
+its 1-pixel NMS ring, each pixel once, from a shared-memory tile. A
+table of up to MAX_LEVELS levels travels in the kernel's arguments, so a
+pyramid is one launch; more levels take a further launch. Outputs are
+views into one allocation.
+
+Bound: operations and bytes about equally: the kernel's 121 f32
+operations per pixel, and 12 bytes read and written per pixel, each
+about 0.0034 ms for the 8 ORB levels of a 480x640 frame (0.95 M pixels)
+on an H100 SXM. The first design took 0.1119 ms there (NVIDIA H100 80GB
+HBM3, 700.00 W, chip_smoke.py): a runtime arc kept about 480 guarded
+mins per score, its 32x8 tiles scored the NMS ring in a second, mostly
+idle pass, and each level took a launch of its own. This design takes
+0.0166 ms. Details in the note at the top of csrc/fast.cu; per-level times
+in PERF.md.
 """
 
 from __future__ import annotations
@@ -106,12 +125,15 @@ def fast_corners_plain(
 # ------------------------------------------------------------ CUDA kernel
 
 
+MAX_LEVELS = 16  # levels per launch: the kernel's level table (kMaxLevels)
+
+
 def _lib():
     lib = _build.load("fast")
     if not getattr(lib, "_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fast_launch.argtypes = [vp, vp, vp, ci, ci, cf, ci, ci, ci, vp]
-        lib.fast_launch.restype = ci
+        lib.fast_launch_levels.argtypes = [ci, vp, vp, vp, vp, vp, cf, ci, ci, ci, vp]
+        lib.fast_launch_levels.restype = ci
         lib._typed = True
     return lib
 
@@ -121,24 +143,70 @@ def _check_image(img: torch.Tensor) -> None:
         raise ValueError(f"fast kernel: expected one image [H, W], got {tuple(img.shape)}")
 
 
-def _launch(img: torch.Tensor, threshold: float, arc: int, pattern: int, do_nms: bool):
-    if img.device.type != "cuda":
-        raise ValueError(f"fast kernel: expected a CUDA tensor, got {img.device}")
+def _check_levels(levels) -> list[torch.Tensor]:
+    levels = list(levels)
+    if not levels:
+        raise ValueError("fast kernel: expected at least one level")
+    for lvl in levels:
+        _check_image(lvl)
+    devices = {lvl.device for lvl in levels}
+    if len(devices) != 1:
+        raise ValueError(f"fast kernel: levels on several devices: {devices}")
+    return levels
+
+
+def _launch(levels: list[torch.Tensor], threshold: float, arc_length: int | None,
+            pattern: int, do_nms: bool, counter: str):
+    """Score (and NMS) maps of every level, MAX_LEVELS levels per launch,
+    each launch counted under `counter`. Returns (scores, nms or None),
+    per-level views into one allocation."""
+    dev = levels[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"fast kernel: expected CUDA tensors, got {dev}")
+    arc = PATTERNS[pattern][1] if pattern in PATTERNS and arc_length is None else arc_length
     if pattern not in PATTERNS or not 1 <= arc <= pattern:
         raise ValueError(f"fast kernel: pattern {pattern}, arc {arc}")
-    x = img.to(torch.float32).contiguous()
-    h, w = x.shape
-    score = torch.empty_like(x)
-    nms = torch.empty_like(x) if do_nms else None
+    xs = [lvl.to(torch.float32).contiguous() for lvl in levels]
+    sizes = [x.numel() for x in xs]
+    flat = torch.empty(sum(sizes) * (2 if do_nms else 1), dtype=torch.float32, device=dev)
+    views = [v.view(x.shape) for v, x in zip(flat.split(sizes * (2 if do_nms else 1)), xs * 2)]
+    scores, nms = views[: len(xs)], (views[len(xs):] if do_nms else None)
     lib = _lib()
-    with torch.cuda.device(x.device):
-        rc = lib.fast_launch(
-            x.data_ptr(), score.data_ptr(), nms.data_ptr() if do_nms else None,
-            h, w, float(threshold), int(arc), int(pattern), int(do_nms),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check(lib, "fast", rc)
-    return score, nms
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for i in range(0, len(xs), MAX_LEVELS):
+            part = slice(i, i + MAX_LEVELS)
+            rc = lib.fast_launch_levels(
+                len(xs[part]), _pointers(xs[part]), _pointers(scores[part]),
+                _pointers(nms[part]) if do_nms else None,
+                _ints([x.shape[0] for x in xs[part]]), _ints([x.shape[1] for x in xs[part]]),
+                float(threshold), int(arc), int(pattern), int(do_nms), stream,
+            )
+            _build.check(lib, "fast", rc)
+            _counts.launch_counts[counter] += 1
+    return scores, nms
+
+
+def _pointers(ts: list[torch.Tensor]):
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def _ints(vals: list[int]):
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def fast_corners_levels(
+    levels, threshold: float, arc_length: int | None = None, pattern_size: int = 16,
+) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """K1 over a list of images [H_l, W_l] (a pyramid's levels) on one
+    device: [(score, nms_score)] per level, each equal to
+    `fast_corners_cuda` on that level. On the card one launch covers up to
+    MAX_LEVELS levels; CPU tensors take the plain version level by level."""
+    levels = _check_levels(levels)
+    if levels[0].device.type == "cpu":
+        return [fast_corners_plain(lvl, threshold, arc_length, pattern_size) for lvl in levels]
+    scores, nms = _launch(levels, threshold, arc_length, pattern_size, True, "fast_corners")
+    return list(zip(scores, nms))
 
 
 def fast_corners_cuda(
@@ -149,12 +217,7 @@ def fast_corners_cuda(
     image [H, W]. Returns (score, nms_score); nms_score > -1e8 exactly at
     the corners. CPU tensors take the plain version."""
     _check_image(img)
-    if img.device.type == "cpu":
-        return fast_corners_plain(img, threshold, arc_length, pattern_size)
-    arc = PATTERNS[pattern_size][1] if arc_length is None else arc_length
-    score, nms = _launch(img, threshold, arc, pattern_size, True)
-    _counts.launch_counts["fast_corners"] += 1
-    return score, nms
+    return fast_corners_levels([img], threshold, arc_length, pattern_size)[0]
 
 
 def fast_score_cuda(
@@ -164,7 +227,5 @@ def fast_score_cuda(
     _check_image(img)
     if img.device.type == "cpu":
         return fast_score_plain(img, arc_length, pattern_size)
-    arc = PATTERNS[pattern_size][1] if arc_length is None else arc_length
-    score, _ = _launch(img, 0.0, arc, pattern_size, False)
-    _counts.launch_counts["fast_score"] += 1
-    return score
+    scores, _ = _launch([img], 0.0, arc_length, pattern_size, False, "fast_score")
+    return scores[0]

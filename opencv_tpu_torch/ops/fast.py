@@ -40,6 +40,16 @@ def fast_corners(
     return score, score > threshold
 
 
+def fast_corners_levels(
+    levels, threshold: float, arc_length: int | None = None, pattern_size: int = 16,
+) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """`fast_corners` with NMS on each image of `levels` (a pyramid's
+    levels, one device): [(score, corner_mask)] per level. On the card the
+    levels share one kernel launch."""
+    return [(score, nmsed > -1e8) for score, nmsed in
+            fast_kernel.fast_corners_levels(levels, threshold, arc_length, pattern_size)]
+
+
 def fast_detect(
     img: torch.Tensor,
     max_keypoints: int,

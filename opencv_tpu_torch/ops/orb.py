@@ -1,7 +1,8 @@
 """ORB: oriented FAST + rotated BRIEF over a scale pyramid (port of
 opencv_tpu/ops/orb.py `detect_and_compute`).
 
-Per level: FAST score + NMS (kernel K1 on the card) -> border mask ->
+FAST score + NMS of all levels (kernel K1 on the card, one launch per
+frame), then per level: border mask ->
 cull to 2x budget by FAST score -> Harris rescoring -> cull to budget ->
 quadratic sub-pixel refine -> intensity-centroid angle -> 7x7 Gaussian
 blur -> rotated BRIEF by an exact per-keypoint gather. The JAX package's
@@ -158,16 +159,17 @@ def detect_and_compute(
     budgets = level_budgets(config.n_features, config.n_levels, config.scale_factor)
     border = max(config.edge_threshold, PATCH_RADIUS + 1)
 
+    # FAST + NMS of every level with a budget: one kernel launch on the card
+    used = [lvl for lvl in range(config.n_levels) if budgets[lvl] > 0]
+    fast = fast_mod.fast_corners_levels([pyr.levels[lvl] for lvl in used], config.fast_threshold)
+
     all_kp: list[KeyPoints] = []
     all_desc: list[torch.Tensor] = []
-    for lvl in range(config.n_levels):
+    for lvl, (score, corner) in zip(used, fast):
         level = pyr.levels[lvl]
         scale = pyr.scales[lvl]
         budget = budgets[lvl]
-        if budget == 0:
-            continue
         h, w = level.shape
-        score, corner = fast_mod.fast_corners(level, config.fast_threshold)
         yy = torch.arange(h, device=dev)[:, None]
         xx = torch.arange(w, device=dev)[None, :]
         corner &= (yy >= border) & (yy < h - border) & (xx >= border) & (xx < w - border)

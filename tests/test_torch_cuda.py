@@ -1,7 +1,9 @@
 """CUDA kernels of the PyTorch port against their plain PyTorch versions on
-an NVIDIA card: K1/K2 (csrc/fast.cu), K3 (csrc/knn2_hamming.cu) and K4/K5
-(csrc/lk_sample.cu), at the main path's shapes and at ragged ones, all
-exact; and the LK path on the card against the same path on the CPU.
+an NVIDIA card: K1/K2 (csrc/fast.cu; every arc of every ring, one level
+and a pyramid per launch), K3 (csrc/knn2_hamming.cu) and K4/K5
+(csrc/lk_sample.cu; compiled-in and generic windows, ragged point
+counts), at the main path's shapes and at ragged ones, all exact; and the
+LK path on the card against the same path on the CPU.
 
 This file imports neither jax nor the JAX package, so that it runs on a
 machine that has only PyTorch:
@@ -35,8 +37,10 @@ def _img(rng, h, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pattern,arc", [(16, 9), (16, 12), (12, 7), (12, 9), (8, 5), (8, 8)])
+@pytest.mark.parametrize("pattern,arc", [(p, a) for p in (16, 12, 8) for a in range(1, p + 1)])
 def test_fast_kernel_equals_plain(card, pattern, arc):
+    """Every arc of every ring: the compiled-in default arcs (16/9, 12/7,
+    8/5) and the generic instantiation."""
     rng = np.random.default_rng(1234)
     for h, w in ((480, 640), (67, 93), (5, 300)):
         img = _img(rng, h, w)
@@ -47,6 +51,40 @@ def test_fast_kernel_equals_plain(card, pattern, arc):
         assert torch.equal(s_k, s_p) and torch.equal(n_k, n_p)
         assert torch.equal(fast_kernel.fast_score_cuda(x, arc, pattern),
                            fast_kernel.fast_score_plain(x, arc, pattern))
+
+
+def _level_sets():
+    from opencv_tpu_torch.core import pyramid
+
+    return {
+        "orb_480x640": pyramid.level_shapes(480, 640, 8, 1.2),
+        "ragged": [(67, 93), (5, 300), (7, 7), (1, 1)],
+        "deeper_than_the_table": pyramid.level_shapes(480, 640, fast_kernel.MAX_LEVELS + 4, 1.2),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["orb_480x640", "ragged", "deeper_than_the_table"])
+def test_fast_levels_kernel_equals_plain(card, name):
+    """One launch per MAX_LEVELS levels, each level's (score, nms) equal
+    to the plain version and to the one-level entry."""
+    rng = np.random.default_rng(5)
+    shapes = _level_sets()[name]
+    levels = []
+    for h, w in shapes:
+        img = _img(rng, h, w)
+        img[: h // 3, : w // 2] = 200.0  # plateaus: NMS ties
+        levels.append(torch.from_numpy(img).to(card))
+    cuda_ops.reset_launch_counts()
+    got = fast_kernel.fast_corners_levels(levels, 20.0)
+    torch.cuda.synchronize()
+    assert cuda_ops.launch_counts["fast_corners"] == -(-len(levels) // fast_kernel.MAX_LEVELS)
+    assert len(got) == len(levels)
+    for lvl, (s_k, n_k) in zip(levels, got):
+        s_p, n_p = fast_kernel.fast_corners_plain(lvl, 20.0)
+        assert torch.equal(s_k, s_p) and torch.equal(n_k, n_p)
+        s_1, n_1 = fast_kernel.fast_corners_cuda(lvl, 20.0)
+        assert torch.equal(s_k, s_1) and torch.equal(n_k, n_1)
 
 
 def _tied_set(rng, nq, nt):
@@ -82,7 +120,7 @@ def _lk_points(rng, n, h, w, win):
         [-500.0, -500.0], [1e7, 12.0], [np.nan, 5.0], [5.0, np.inf], [-np.inf, 3.0],
         [33.0, 44.0],
     ], np.float32)
-    pts[: len(odd)] = odd
+    pts[: min(n, len(odd))] = odd[:n]
     return pts
 
 
@@ -110,12 +148,50 @@ def test_lk_sample_kernel_equals_plain(card, n_ch, win, n, integer):
 
 
 @pytest.mark.cuda
-def test_lk_windows_kernel_equals_plain(card):
+@pytest.mark.parametrize("win,n_ch", [(w, c) for w in (7, 15, 21, 23, 48) for c in (1, 2, 3, 4)])
+def test_lk_sample_kernel_ragged_counts(card, win, n_ch):
+    """Windows 21 and 48 (compiled in) and 7, 15, 23 (generic), C = 1-4,
+    at N = 0, 2000 and P - 1, P + 1 for every count P of points a block
+    takes at these windows and channels (1, 2, 4, 5, 6, 10, 20: 1024
+    outputs or one point), odd points first."""
+    rng = np.random.default_rng(win * 10 + n_ch)
+    h, w = 67, 93
+    chans = torch.from_numpy(rng.normal(100, 50, (n_ch, h, w)).astype(np.float32)).to(card)
+    for n in (0, 1, 2, 3, 4, 5, 6, 7, 9, 11, 19, 21, 2000):
+        p = torch.from_numpy(_lk_points(rng, n, h, w, win)).to(card)
+        got = lk_sample.sample_channels(chans, p, win)
+        want = lk_sample.sample_channels_plain(chans, p, win)
+        assert got.shape == (n_ch, n, win, win)
+        assert torch.equal(got, want), (n, int((got != want).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("win,n_ch", [(201, 1), (238, 1), (239, 1), (119, 4), (120, 4)])
+def test_lk_sample_windows_beyond_shared_memory(card, win, n_ch):
+    """Generic windows past 48 KB of staged taps (201), at the last width
+    whose taps fit in an H100's shared memory (238 for one channel, 119
+    for four) and past it, where the taps are read from global memory:
+    K4 and (one channel) K5 still equal their plain versions."""
+    rng = np.random.default_rng(win)
+    h, w = 300, 280
+    chans = torch.from_numpy(rng.normal(100, 50, (n_ch, h, w)).astype(np.float32)).to(card)
+    p = torch.from_numpy(_lk_points(rng, 17, h, w, win)).to(card)
+    got = lk_sample.sample_channels(chans, p, win)
+    assert torch.equal(got, lk_sample.sample_channels_plain(chans, p, win))
+    if n_ch == 1:
+        assert torch.equal(lk_sample.sample_windows(chans[0], p, win),
+                           lk_sample.sample_windows_plain(chans[0], p, win))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("win", [21, 15])
+def test_lk_windows_kernel_equals_plain(card, win):
+    """K5 at the compiled-in win 21 and the generic instantiation."""
     rng = np.random.default_rng(12)
     img = torch.from_numpy(rng.normal(100, 50, (480, 640)).astype(np.float32)).to(card)
-    pts = _lk_points(rng, 512, 480, 640, 21)
+    pts = _lk_points(rng, 512, 480, 640, win)
     p = torch.from_numpy(pts).to(card)
-    assert torch.equal(lk_sample.sample_windows(img, p, 21), lk_sample.sample_windows_plain(img, p, 21))
+    assert torch.equal(lk_sample.sample_windows(img, p, win), lk_sample.sample_windows_plain(img, p, win))
 
 
 @pytest.mark.cuda
@@ -165,6 +241,7 @@ def test_wrappers_count_launches(card):
     cuda_ops.reset_launch_counts()
     x = torch.zeros((32, 32), device=card)
     fast_kernel.fast_corners_cuda(x, 20.0)
+    fast_kernel.fast_corners_levels([x, x[:16, :8]], 20.0)
     fast_kernel.fast_score_cuda(x)
     q, t, v = (a.to(card) for a in _tied_set(np.random.default_rng(0), 8, 64))
     knn.knn_match_streaming(q, t, train_valid=v)
@@ -173,5 +250,5 @@ def test_wrappers_count_launches(card):
     lk_sample.sample_single(x, pts, 48)
     lk_sample.sample_windows(x, pts, 21)
     torch.cuda.synchronize()
-    assert cuda_ops.launch_counts == {"fast_corners": 1, "fast_score": 1, "knn2_hamming": 1,
+    assert cuda_ops.launch_counts == {"fast_corners": 2, "fast_score": 1, "knn2_hamming": 1,
                                       "lk_sample": 2, "lk_sample_clamp": 1}
