@@ -18,30 +18,47 @@ Phases:
      device times by CUDA events (kernel, plain version, one PyTorch
      library call where one computes the same function) beside the bound,
      and the first designs' times as labelled constants (FIRST_DESIGN_MS);
-  4. the three paths, each with the launch counts reset just before a
+  4. the six paths, each with the launch counts reset just before a
      warm run and read just after it:
      a. ORB VO: VisualOdometry.process_sequence on a seeded 480x640
         synthetic sequence at bench_config5's engine config
         (ORBConfig(n_features=2000), every other default, chunk=8), cold
-        then warm three times (frames/s is the median warm run, printed
+        then warm twice (frames/s is the median warm run, printed
         with the range); ATE against ground truth must be < 5 % of the
         path, with >= 10 keyframes and the state `tracking`;
      b. LK: bench.py config 2 on 100 frames of the scene (GFTT 512 corners,
         quality 0.01, min distance 7; LKConfig(win_size=21, n_levels=4);
         build_flow_pyramid once per frame, calc_optical_flow_pyr_lk_pyr,
-        re-detection below 500 tracked), cold then warm three times;
+        re-detection below 500 tracked), cold then warm twice;
         checked against the same path on the CPU on 4 pairs (0.05 px,
         >= 99 % equal status) and on frame 0 shifted by (5, 3) px
         (every tracked corner 48 px inside within 0.35 px);
      c. klt VO: VisualOdometry(tracker="klt", n_features=2000).process_
-        sequence over the 120 frames, cold then warm three times (the
+        sequence over the 120 frames, cold then warm twice (the
         median warm run, with the range); ATE < 5 % of the path, state `tracking`, frames tracked by LK > 0, K4 launched;
-  5. profile: torch.profiler over 8 frames of steady tracking of each
-     engine (device busy share, kernels per frame, top kernels, top host
-     operations).
-Prints a JSON line of path results, a JSON line of kernels, the card
-line, and last {"ok": true, "device": {...}}. Exits non-zero on any
-failure, and without a card.
+     d. twoview: bench.py config 3 with the 5-point and EPnP solvers on
+        frames 0 and 8 (ORB, 2-NN, 5-point RANSAC, recoverPose,
+        triangulation, correctMatches, EPnP-RANSAC, VVS, AP3P, similarity
+        RANSAC), cold then warm three times; rotation < 1 deg and
+        translation direction < 3 deg from the truth, EPnP keeping >= 80 %
+        of recoverPose's mask, the card within 0.05 / 0.2 deg of the same
+        path on the CPU;
+     e. calib: 20 views of a 9x6 board: calibrate_camera (RMS < 0.35 px,
+        fx and fy within 1 %), IPPE per view, stereo_calibrate of a second
+        camera 0.12 m to the right (baseline within 1 %), stereo_rectify,
+        both rectification maps, remap of frame 0, calibrate_fisheye; the
+        card against the CPU (K 0.05 px, maps 1e-3 px, remap 1e-3);
+     f. lsh: an LSH index of the ORB descriptors of frames 0-63 (128 000
+        rows); near-duplicate queries (recall > 0.85, false positives
+        < 0.05) and frame 64's, against the exact 2-NN through K3; the
+        card's matches equal to the CPU's; build and query times;
+  5. profile: torch.profiler over frames 40-48 of steady tracking of the
+     ORB engine (one chunk), frames 40-44 of the klt engine, one two-view
+     pair and one calibrate_camera of 20 views (device busy share,
+     kernels per unit, top kernels, top host operations).
+Prints a JSON line of path results (each with its unit and unit count),
+a JSON line of kernels, the card line, and last {"ok": true, "device":
+{...}}. Exits non-zero on any failure, and without a card.
 """
 
 from __future__ import annotations
@@ -507,7 +524,7 @@ def phase_lk_kernels(lvl0, rates: dict) -> dict:
     return rows
 
 
-def phase_main_path(frames, centres, K, warm_runs: int = 3) -> dict:
+def phase_main_path(frames, centres, K, warm_runs: int = 2) -> dict:
     import torch
 
     from opencv_tpu_torch.core.config import ORBConfig
@@ -542,7 +559,8 @@ def phase_main_path(frames, centres, K, warm_runs: int = 3) -> dict:
         fail(f"trajectory shape {traj.shape} or non-finite values")
     path = float(np.linalg.norm(np.diff(centres, axis=0), axis=1).sum())
     ate = ate_rmse(traj, centres, with_scale=True)
-    res = dict(frames=n, fps_warm=n / warm, fps_warm_runs=[n / t for t in warm_s],
+    res = dict(frames=n, units=n, unit="frame", fps_warm=n / warm,
+               fps_warm_runs=[n / t for t in warm_s],
                warm_s=warm, cold_s=cold, ate=ate, path=path,
                ate_pct=100 * ate / path, keyframes=len(vo.keyframes),
                loop_closures=vo.loop_closures, relocalizations=vo.relocalizations,
@@ -589,7 +607,7 @@ def lk_config2_run(frames_dev, cfg, dev):
     return tracked, redetect
 
 
-def phase_lk_path(frames, warm_runs: int = 3, dev: str = "cuda") -> dict:
+def phase_lk_path(frames, warm_runs: int = 2, dev: str = "cuda") -> dict:
     """The LK path (bench.py config 2) on the first 100 frames, and its two
     checks: (a) 4 pairs against the same path on the CPU, (b) frame 0
     rolled by (dx, dy) = (5, 3) px, on corners at least 48 px inside
@@ -661,7 +679,8 @@ def phase_lk_path(frames, warm_runs: int = 3, dev: str = "cuda") -> dict:
     if not shift_err < 0.35:
         fail(f"LK flow error {shift_err} px on a pure (5, 3) shift (bound 0.35)")
 
-    res = dict(frames=n, fps_warm=n / warm, fps_warm_runs=[n / t for t in warm_s],
+    res = dict(frames=n, units=n, unit="frame", fps_warm=n / warm,
+               fps_warm_runs=[n / t for t in warm_s],
                warm_s=warm, cold_s=cold, tracked_mean=float(np.mean(tracked)),
                tracked_min=int(np.min(tracked)), redetections=redetect,
                k4_launches_per_pair=per_pair, cpu_check_max_px=worst,
@@ -675,7 +694,7 @@ def phase_lk_path(frames, warm_runs: int = 3, dev: str = "cuda") -> dict:
     return res
 
 
-def phase_klt(frames, centres, K, warm_runs: int = 3) -> dict:
+def phase_klt(frames, centres, K, warm_runs: int = 2) -> dict:
     """The VO engine with the klt tracker, cold then warm `warm_runs`
     times (frames/s is the median warm run, printed with the range)."""
     import torch
@@ -709,7 +728,8 @@ def phase_klt(frames, centres, K, warm_runs: int = 3) -> dict:
         fail(f"klt trajectory shape {traj.shape} or non-finite values")
     path = float(np.linalg.norm(np.diff(centres, axis=0), axis=1).sum())
     ate = ate_rmse(traj, centres, with_scale=True)
-    res = dict(frames=n, fps_warm=n / warm, fps_warm_runs=[n / t for t in warm_s],
+    res = dict(frames=n, units=n, unit="frame", fps_warm=n / warm,
+               fps_warm_runs=[n / t for t in warm_s],
                warm_s=warm, cold_s=cold, ate=ate, path=path,
                ate_pct=100 * ate / path, keyframes=len(vo.keyframes), lk_tracked=vo.lk_tracked,
                relocalizations=vo.relocalizations, state=vo.state, launches=counts)
@@ -727,28 +747,404 @@ def phase_klt(frames, centres, K, warm_runs: int = 3) -> dict:
     return res
 
 
-def phase_profile(frames, K, tracker: str = "orb", warmup: int = 40, window: int = 8) -> None:
-    """Where the time goes in steady tracking: torch.profiler over frames
-    [warmup, warmup + window) of a fresh engine that has tracked the first
-    `warmup` frames. Prints the device's busy share of the window's wall
-    time (the sum of kernel times: no kernels overlap on one stream), the
-    top kernels by device time and the top host operations by their own
-    time. The profiler slows the host, so the busy share is a lower bound
-    of the unprofiled run's."""
+# ------------------------------------------------------------ geometry slice
+
+
+def _angle_deg(a, b) -> float:
+    """Angle between two directions, up to sign, in degrees."""
+    a = np.asarray(a, np.float64) / np.linalg.norm(a)
+    b = np.asarray(b, np.float64) / np.linalg.norm(b)
+    return float(np.degrees(np.arccos(np.clip(abs(a @ b), -1.0, 1.0))))
+
+
+def _rot_deg(Ra, Rb) -> float:
+    """Angle of Ra^T Rb in degrees, by atan2 of its skew and symmetric
+    parts (arccos of the trace loses small angles of f32 rotations)."""
+    M = np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64)
+    w = np.array([M[2, 1] - M[1, 2], M[0, 2] - M[2, 0], M[1, 0] - M[0, 1]])
+    return float(np.degrees(np.arctan2(0.5 * np.linalg.norm(w), 0.5 * (np.trace(M) - 1.0))))
+
+
+def two_view_pipeline(img0, img1, K: np.ndarray, seed: int = 0) -> dict:
+    """bench.py config 3 with the reference's default minimal solvers on
+    one pair: ORB (2000 features, 8 levels) on both frames, 2-NN matching
+    at ratio 0.75, normalized coords; the 5-point RANSAC (1024 hypotheses,
+    threshold 2e-3), recoverPose, triangulation and optimal correction;
+    EPnP-RANSAC (1024 hypotheses, threshold 3e-3) of frame 1 against the
+    triangulated points, VVS refinement, AP3P over the same 1024 samples
+    (their first 4 points), and a similarity RANSAC on the pixel matches.
+    The RANSAC samples come from a seeded CPU generator and the valid mask
+    of their stage, so the card and the CPU score the same samples where
+    their masks agree (each draw reads the mask back to the host)."""
+    import torch
+
+    from opencv_tpu_torch.core.config import MatchConfig, ORBConfig, RansacConfig
+    from opencv_tpu_torch.geometry import affine2d, ap3p, epipolar, pnp, ransac
+    from opencv_tpu_torch.ops import matching, orb
+
+    dev = img0.device
+    cfg = ORBConfig(n_features=2000, n_levels=8)
+    kp0, d0 = orb.detect_and_compute(img0, cfg)
+    kp1, d1 = orb.detect_and_compute(img1, cfg)
+    m = matching.knn_match(d0, d1, kp0.valid, kp1.valid, MatchConfig(ratio=0.75))
+    Kt = torch.as_tensor(K, device=dev)
+    px0, px1 = kp0.xy[m.query_idx], kp1.xy[m.train_idx]
+    p0, p1 = epipolar.normalize_pixels(px0, Kt), epipolar.normalize_pixels(px1, Kt)
+    n = p0.shape[0]
+
+    def draw(valid, h, size, k):
+        g = torch.Generator().manual_seed(seed + k)
+        return ransac.sample_subsets(g, n, valid.cpu(), h, size).to(dev)
+
+    ess = epipolar.find_essential_ransac_5pt(None, p0, p1, m.valid, RansacConfig(1024, 2e-3),
+                                            subsets=draw(m.valid, 1024, 5, 0))
+    rec = epipolar.recover_pose(ess.model, p0, p1, ess.inliers)
+    X = epipolar.triangulate_normalized(rec.R, rec.t, p0, p1)
+    c0, c1 = epipolar.correct_matches(ess.model, p0, p1)
+    sub5 = draw(rec.mask, 1024, 5, 1)
+    pose = pnp.solve_pnp_ransac(None, X, p1, valid=rec.mask, cfg=RansacConfig(1024, 3e-3),
+                                kernel="epnp", adaptive=False, subsets=sub5)
+    rv, tv = pnp.refine_pose_vvs(pose.rvec, pose.tvec, X, p1, pose.inliers.to(torch.float32))
+    _, ap3p_ok = ap3p.ap3p_kernel(X[sub5[:, :4]], p1[sub5[:, :4]])
+    sim = affine2d.estimate_affine_partial_2d(None, px0, px1, m.valid, subsets=draw(m.valid, 512, 2, 2))
+    both = rec.mask
+    return dict(n_matches=m.valid.sum(), ess=ess, rec=rec, pose=pose, vvs=(rv, tv),
+                ap3p_ok=ap3p_ok.sum(), sim=sim,
+                corr_shift=((c0 - p0).abs().amax(-1) + (c1 - p1).abs().amax(-1))[both].max()
+                if bool(both.any()) else torch.zeros(()),
+                kp0=kp0.xy, mask=rec.mask)
+
+
+def phase_two_view(frames, K, warm_runs: int = 3, dev: str = "cuda") -> dict:
+    """Two-view SfM on frames 0 and 8 of the scene (ground truth from
+    make_sequence: frame i has centre (0.12 i, 0, 0.03 i) and yaw 0.15 i
+    degrees), cold then warm `warm_runs` times; the same path on the CPU
+    with the same samples."""
+    import torch
+
+    from opencv_tpu_torch.ops import cuda as cuda_ops
+    from opencv_tpu_torch.slam.vo import _np_rodrigues
+
+    a, b = 0, 8
+    R_gt = _np_rodrigues(np.array([0.0, np.deg2rad(0.15 * b), 0.0]))
+    t_gt = -R_gt @ np.array([0.12 * b, 0.0, 0.03 * b])
+    imgs = [torch.from_numpy(np.ascontiguousarray(frames[i])).to(dev) for i in (a, b)]
+    t0 = time.perf_counter()
+    two_view_pipeline(*imgs, K)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    warm_s = []
+    for i in range(warm_runs):
+        if i == 0:
+            cuda_ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = two_view_pipeline(*imgs, K)
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+        if i == 0:
+            counts = dict(cuda_ops.launch_counts)
+            card = out
+    if counts["fast_corners"] <= 0:
+        fail("kernel fast_corners was not launched on the two-view path")
+    t0 = time.perf_counter()
+    cpu = two_view_pipeline(*(x.cpu() for x in imgs), K)
+    cpu_s = time.perf_counter() - t0
+
+    def summary(o):
+        R, t = o["rec"].R.cpu().numpy(), o["rec"].t.cpu().numpy()
+        pose_R = _np_rodrigues(o["pose"].rvec.cpu().numpy())
+        keep = (o["pose"].inliers & o["mask"]).sum() / max(int(o["mask"].sum()), 1)
+        return dict(R=R, t=t, rot_err_deg=_rot_deg(R, R_gt), t_dir_err_deg=_angle_deg(t, t_gt),
+                    pnp_rot_err_deg=_rot_deg(pose_R, R_gt), pnp_keeps=float(keep),
+                    matches=int(o["n_matches"]), ess_inliers=int(o["ess"].n_inliers),
+                    pose_inliers=int(o["rec"].n_good), pnp_inliers=int(o["pose"].n_inliers),
+                    ap3p_ok=int(o["ap3p_ok"]), sim_inliers=int(o["sim"].n_inliers),
+                    corr_max_shift=float(o["corr_shift"]))
+
+    g, c = summary(card), summary(cpu)
+    kp_same = float((card["kp0"].cpu() == cpu["kp0"]).all(-1).float().mean())
+    d_rot, d_dir = _rot_deg(g["R"], c["R"]), _angle_deg(g["t"], c["t"])
+    warm = statistics.median(warm_s)
+    res = dict(units=1, unit="pair", pairs_per_s=1.0 / warm, pairs_per_s_runs=[1.0 / t for t in warm_s],
+               warm_s=warm, cold_s=cold, cpu_s=cpu_s, card_vs_cpu_rot_deg=d_rot,
+               card_vs_cpu_t_dir_deg=d_dir, kp_equal_share=kp_same, launches=counts,
+               **{k: v for k, v in g.items() if k not in ("R", "t")},
+               cpu={k: v for k, v in c.items() if k not in ("R", "t")})
+    print(f"[twoview] frames {a},{b} 480x640: {g['matches']} matches; 5-point {g['ess_inliers']} inliers, "
+          f"recoverPose {g['pose_inliers']}; rotation error {g['rot_err_deg']:.4f} deg, translation "
+          f"direction error {g['t_dir_err_deg']:.4f} deg; EPnP-RANSAC {g['pnp_inliers']} inliers "
+          f"({100 * g['pnp_keeps']:.1f} % of recoverPose's mask), rotation error "
+          f"{g['pnp_rot_err_deg']:.4f} deg; AP3P {g['ap3p_ok']} of 1024 samples solved; similarity "
+          f"{g['sim_inliers']} inliers; correction moves a match by at most {g['corr_max_shift']:.2e}",
+          flush=True)
+    print(f"[twoview] warm {warm:.4f} s ({1.0 / warm:.2f} pairs/s, median of {warm_runs} runs, range "
+          f"{1.0 / max(warm_s):.2f} to {1.0 / min(warm_s):.2f}), cold {cold:.3f} s; CPU {cpu_s:.3f} s; "
+          f"card vs CPU: rotation {d_rot:.5f} deg, translation direction {d_dir:.5f} deg, keypoints "
+          f"equal {100 * kp_same:.2f} %, CPU errors {c['rot_err_deg']:.4f} / {c['t_dir_err_deg']:.4f} "
+          f"deg; launches {counts}", flush=True)
+    if not (g["rot_err_deg"] < 1.0 and g["t_dir_err_deg"] < 3.0):
+        fail(f"two-view pose error {g['rot_err_deg']:.3f} deg / {g['t_dir_err_deg']:.3f} deg "
+             "(bounds 1 and 3 deg)")
+    if not g["pnp_keeps"] >= 0.8:
+        fail(f"EPnP-RANSAC keeps only {g['pnp_keeps']:.3f} of recoverPose's mask (bound 0.8)")
+    if not (d_rot < 0.05 and d_dir < 0.2):
+        fail(f"two-view card vs CPU: rotation {d_rot} deg (bound 0.05), direction {d_dir} deg (bound 0.2)")
+    return res
+
+
+CALIB_K = np.array([[520.0, 0, 326.0], [0, 525.2, 236.0], [0, 0, 1]], np.float32)
+CALIB_DIST = np.array([-0.2, 0.05, 0.001, -0.001, 0.0], np.float32)
+FISHEYE_K = np.array([0.08, -0.03, 0.01, 0.0], np.float32)
+
+
+def calib_views(n_views: int = 20, seed: int = 0):
+    """The OpenCV tutorial's 9x6 inner-corner board (0.1 m squares) at the
+    distances and offsets of examples/calibration_app.py (2.1-2.9 m,
+    +-0.2 / +-0.15 m, roll +-0.35 rad), tilted up to +-0.75 rad about x
+    and y (the tutorial asks for views at up to ~45 degrees; the
+    example's +-0.35 rad constrains the focal length poorly),
+    projected through CALIB_K with CALIB_DIST (camera 1), from a second
+    camera 0.12 m to the right with a 1 degree yaw (camera 2), and through
+    the fisheye model; 0.2 px of seeded noise on each. Returns (obj
+    [V,54,3], img1, img2, fisheye, (R12, T12), true poses)."""
+    import torch
+
+    from opencv_tpu_torch.geometry import calibration
+    from opencv_tpu_torch.slam.vo import _np_rodrigues, _np_rodrigues_inv
+
+    rng = np.random.default_rng(seed)
+    jj, ii = np.meshgrid(np.arange(9), np.arange(6))
+    obj = np.zeros((54, 3), np.float32)
+    obj[:, 0] = jj.reshape(-1) * 0.1
+    obj[:, 1] = ii.reshape(-1) * 0.1
+    R12 = _np_rodrigues(np.array([0.0, np.deg2rad(1.0), 0.0]))
+    T12 = -R12 @ np.array([0.12, 0.0, 0.0])
+    k4 = torch.tensor([CALIB_K[0, 0], CALIB_K[1, 1], CALIB_K[0, 2], CALIB_K[1, 2]])
+    o = torch.from_numpy(obj)
+    img1, img2, fish, poses = [], [], [], []
+    for _ in range(n_views):
+        rv = np.concatenate([rng.uniform(-0.75, 0.75, 2), rng.uniform(-0.35, 0.35, 1)])
+        tv = np.array([rng.uniform(-0.2, 0.2), rng.uniform(-0.15, 0.15), rng.uniform(2.1, 2.9)])
+        R2 = R12 @ _np_rodrigues(rv)
+        views = [(rv, tv), (_np_rodrigues_inv(R2), R12 @ tv + T12)]
+        for out, (r, t) in zip((img1, img2), views):
+            uv = calibration.project_points_full(torch.tensor(r, dtype=torch.float32),
+                                                 torch.tensor(t, dtype=torch.float32), k4,
+                                                 torch.from_numpy(CALIB_DIST), o).numpy()
+            out.append(uv + rng.normal(0, 0.2, uv.shape))
+        uv = calibration.fisheye_project_points(torch.tensor(rv, dtype=torch.float32),
+                                                torch.tensor(tv, dtype=torch.float32), k4,
+                                                torch.from_numpy(FISHEYE_K), o).numpy()
+        fish.append(uv + rng.normal(0, 0.2, uv.shape))
+        poses.append((rv, tv))
+    f32 = lambda x: np.stack(x).astype(np.float32)  # noqa: E731
+    return np.stack([obj] * n_views), f32(img1), f32(img2), f32(fish), (R12, T12), poses
+
+
+def calib_pipeline(objs, img1, img2, fish, frame, dev) -> dict:
+    """calibrate_camera, IPPE per view on the undistorted corners,
+    stereo_calibrate with the calibrated lens on both cameras,
+    stereo_rectify, both rectification maps, remap of the frame, and
+    calibrate_fisheye."""
+    import torch
+
+    from opencv_tpu_torch.core import imgproc
+    from opencv_tpu_torch.geometry import calibration, decompose, ippe
+
+    cal = calibration.calibrate_camera(objs, img1, device=dev)
+    Kt = torch.from_numpy(cal.K).to(dev)
+    dt = torch.from_numpy(cal.dist).to(dev)
+    und = calibration.undistort_points(torch.from_numpy(img1).to(dev), Kt, dt)
+    o = torch.from_numpy(objs[0]).to(dev)
+    ippe_r = torch.stack([ippe.solve_pnp_ippe(o, und[v]).rvecs[0] for v in range(objs.shape[0])])
+    st = calibration.stereo_calibrate(objs, img1, img2, cal.K, cal.dist, cal.K, cal.dist, device=dev)
+    rect = decompose.stereo_rectify(Kt, Kt, torch.from_numpy(st.R).to(dev), torch.from_numpy(st.T).to(dev),
+                                    frame.shape[-2:])
+    maps = [calibration.init_undistort_rectify_map(Kt, dt, R, P[:, :3], tuple(frame.shape[-2:]))
+            for R, P in ((rect.R1, rect.P1), (rect.R2, rect.P2))]
+    rectified = [imgproc.remap(frame, m) for m in maps]
+    fe = calibration.calibrate_fisheye(objs, fish, device=dev)
+    return dict(cal=cal, ippe_r=ippe_r.cpu().numpy(), st=st, maps=maps, rectified=rectified, fe=fe,
+                lens=(Kt, dt), rect=rect)
+
+
+def phase_calib(frame0, warm_runs: int = 1, dev: str = "cuda") -> dict:
+    """Camera, stereo and fisheye calibration of 20 views at 480x640, then
+    rectification of frame 0; on the card (cold, then warm) and once on
+    the CPU."""
+    import torch
+
+    from opencv_tpu_torch.core import imgproc
+    from opencv_tpu_torch.geometry import calibration
+    from opencv_tpu_torch.ops import cuda as cuda_ops
+    from opencv_tpu_torch.slam.vo import _np_rodrigues
+
+    objs, img1, img2, fish, (R12, T12), poses = calib_views()
+    frame = torch.from_numpy(np.ascontiguousarray(frame0)).to(dev)
+    t0 = time.perf_counter()
+    calib_pipeline(objs, img1, img2, fish, frame, dev)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(warm_runs):
+        g = calib_pipeline(objs, img1, img2, fish, frame, dev)
+    torch.cuda.synchronize()
+    warm = (time.perf_counter() - t0) / warm_runs
+    counts = dict(cuda_ops.launch_counts)
+    t0 = time.perf_counter()
+    c = calib_pipeline(objs, img1, img2, fish, frame.cpu(), "cpu")
+    cpu_s = time.perf_counter() - t0
+
+    K, st, fe = g["cal"].K, g["st"], g["fe"]
+    f_err = [abs(K[0, 0] - CALIB_K[0, 0]) / CALIB_K[0, 0], abs(K[1, 1] - CALIB_K[1, 1]) / CALIB_K[1, 1]]
+    base = float(np.linalg.norm(st.T))
+    ippe_err = max(_rot_deg(_np_rodrigues(r), _np_rodrigues(p[0])) for r, p in zip(g["ippe_r"], poses))
+    stereo_rot = _rot_deg(st.R, R12)
+    d_K = float(np.abs(K - c["cal"].K).max())
+    # the maps on both devices from the card's calibration, and remap on
+    # both devices of the card's maps (bit-equal: the same f32 ops); each
+    # device's own calibration and maps, printed beside
+    Kt, dt = (x.cpu() for x in g["lens"])
+    rect = g["rect"]
+    cpu_maps = [calibration.init_undistort_rectify_map(Kt, dt, R.cpu(), P[:, :3].cpu(),
+                                                       tuple(frame.shape[-2:]))
+                for R, P in ((rect.R1, rect.P1), (rect.R2, rect.P2))]
+    d_map = max(float((a.cpu() - b).abs().max()) for a, b in zip(g["maps"], cpu_maps))
+    same_map = max(float((imgproc.remap(frame.cpu(), m.cpu()) - r.cpu()).abs().max())
+                   for m, r in zip(g["maps"], g["rectified"]))
+    own_maps = max(float((a.cpu() - b).abs().max()) for a, b in zip(g["maps"], c["maps"]))
+    own_map = max(float((a.cpu() - b).abs().max()) for a, b in zip(g["rectified"], c["rectified"]))
+    d_dist = float(np.abs(g["cal"].dist - c["cal"].dist).max())
+    res = dict(units=objs.shape[0], unit="view", warm_s=warm, cold_s=cold, cpu_s=cpu_s,
+               rms=g["cal"].rms, fx_rel_err=float(f_err[0]), fy_rel_err=float(f_err[1]),
+               dist=g["cal"].dist.tolist(), ippe_max_rot_err_deg=ippe_err, stereo_rms=st.rms,
+               baseline=base, stereo_rot_err_deg=stereo_rot, fisheye_rms=fe.rms,
+               fisheye_f_rel_err=float(abs(fe.K[0, 0] - CALIB_K[0, 0]) / CALIB_K[0, 0]),
+               card_vs_cpu_K_px=d_K, card_vs_cpu_dist=d_dist, card_vs_cpu_map_px=d_map,
+               card_vs_cpu_remap=same_map, own_calibrations_map_px=own_maps,
+               own_calibrations_remap=own_map, launches=counts)
+    print(f"[calib] 20 views x 54 corners: RMS {g['cal'].rms:.4f} px, fx {K[0, 0]:.3f} fy {K[1, 1]:.3f} "
+          f"(truth {CALIB_K[0, 0]:.1f} / {CALIB_K[1, 1]:.1f}; {100 * f_err[0]:.3f} / {100 * f_err[1]:.3f} %), "
+          f"cx {K[0, 2]:.3f} cy {K[1, 2]:.3f}, dist {np.round(g['cal'].dist, 4).tolist()}; IPPE rotation "
+          f"error <= {ippe_err:.4f} deg; stereo RMS {st.rms:.4f} px, baseline {base:.5f} m (truth 0.12), "
+          f"rotation error {stereo_rot:.4f} deg; fisheye RMS {fe.rms:.4f} px, fx {fe.K[0, 0]:.3f}", flush=True)
+    print(f"[calib] card {warm:.3f} s warm, {cold:.3f} s cold; CPU {cpu_s:.3f} s; card vs CPU: K "
+          f"{d_K:.2e} px, dist {d_dist:.2e}; maps from the card's calibration {d_map:.2e} px; remap "
+          f"of the card's maps {same_map:.2e}; from each device's own calibration: maps "
+          f"{own_maps:.2e} px, remap {own_map:.2e}; launches {counts}", flush=True)
+    if not g["cal"].rms < 0.35:
+        fail(f"calibration RMS {g['cal'].rms:.4f} px (bound 0.35)")
+    if not max(f_err) < 0.01:
+        fail(f"calibrated focal lengths off by {max(f_err):.4f} (bound 1 %)")
+    if not abs(base - 0.12) < 0.0012:
+        fail(f"stereo baseline {base:.5f} m (truth 0.12, bound 1 %)")
+    if not (d_K < 0.05 and d_map < 1e-3 and same_map < 1e-3):
+        fail(f"calibration card vs CPU: K {d_K} px, maps {d_map} px, remap {same_map}")
+    return res
+
+
+def phase_lsh(frames, n_db: int = 64, dev: str = "cuda") -> dict:
+    """A map-scale LSH index: the ORB descriptors of frames 0..n_db-1 (the
+    VO engine's retrieval database of 64 keyframes x 2000) with JAX's
+    defaults (8 tables, 14 key bits, capacity 64). Queries (a): 2000 rows
+    with 12 of 256 bits flipped; (b): frame n_db's ORB descriptors. Each
+    against the exact 2-NN through K3 (ratio 0.9, max distance 64); the
+    card's matches against the CPU's for the same index; query times."""
+    import torch
+
+    from opencv_tpu_torch.core.config import MatchConfig, ORBConfig
+    from opencv_tpu_torch.ops import cuda as cuda_ops
+    from opencv_tpu_torch.ops import lsh, matching, orb
+    from opencv_tpu_torch.ops.cuda import knn
+
+    cfg = MatchConfig(ratio=0.9, max_distance=64.0, cross_check=False)
+    orb_cfg = ORBConfig(n_features=2000)
+    rng = np.random.default_rng(64)
+    cuda_ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    descs, valids = [], []
+    for f in range(n_db + 1):
+        kp, d = orb.detect_and_compute(torch.from_numpy(np.ascontiguousarray(frames[f])).to(dev), orb_cfg)
+        descs.append(d)
+        valids.append(kp.valid)
+    torch.cuda.synchronize()
+    orb_s = time.perf_counter() - t0
+    db = torch.cat(descs[:n_db])[torch.cat(valids[:n_db])]
+    train_np = db.cpu().numpy().view(np.uint32)
+    t0 = time.perf_counter()
+    index = lsh.build_lsh_index(train_np, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    qa = train_np[rng.choice(train_np.shape[0], 2000, replace=False)].copy()
+    for row in qa:
+        for bit in rng.integers(0, 256, 12):
+            row[bit // 32] ^= np.uint32(1) << np.uint32(bit % 32)
+    queries = {"a": (torch.from_numpy(qa.view(np.int32)).to(dev), None),
+               "b": (descs[n_db], valids[n_db])}
+    out = {}
+    for name, (q, qv) in queries.items():
+        exact = matching.knn_match_auto(q, db, qv, None, cfg)
+        approx = lsh.knn_match_lsh(index, q, qv, cfg)
+        ev, av = exact.valid.cpu().numpy(), approx.valid.cpu().numpy()
+        agree = (exact.train_idx == approx.train_idx).cpu().numpy()
+        out[name] = dict(exact=exact, approx=approx, recall=float((av & agree)[ev].mean()),
+                         false_pos=float((av & ~ev).mean()), exact_valid=int(ev.sum()),
+                         lsh_valid=int(av.sum()))
+    torch.cuda.synchronize()
+    counts = dict(cuda_ops.launch_counts)
+    if counts["knn2_hamming"] <= 0 or counts["fast_corners"] <= 0:
+        fail(f"the LSH path did not launch K1 and K3: {counts}")
+
+    t0 = time.perf_counter()
+    index_cpu = lsh.build_lsh_index(train_np, device="cpu")
+    cpu_build_s = time.perf_counter() - t0
+    if not torch.equal(index_cpu.buckets, index.buckets.cpu()):
+        fail("LSH tables built for the card and the CPU differ")
+    for name, (q, qv) in queries.items():
+        cm = lsh.knn_match_lsh(index_cpu, q.cpu(), None if qv is None else qv.cpu(), cfg)
+        gm = out[name]["approx"]
+        for field in ("train_idx", "distance", "valid"):
+            if not torch.equal(getattr(cm, field), getattr(gm, field).cpu()):
+                fail(f"LSH matches of queries ({name}) differ between the card and the CPU ({field})")
+    q_a = queries["a"][0]
+    lsh_ms = device_time_ms(lambda: lsh.knn_match_lsh(index, q_a, None, cfg), calls=5)
+    k3_ms = device_time_ms(lambda: knn.knn2_hamming_cuda(q_a, db), calls=5)
+    a, b = out["a"], out["b"]
+    res = dict(units=4000, unit="query", db_rows=int(db.shape[0]), orb_s=orb_s, build_s=build_s,
+               cpu_build_s=cpu_build_s, lsh_query_ms=lsh_ms, k3_query_ms=k3_ms,
+               **{f"{k}_{n}": out[n][k] for n in ("a", "b")
+                  for k in ("recall", "false_pos", "exact_valid", "lsh_valid")},
+               launches=counts)
+    print(f"[lsh] index of {db.shape[0]} ORB descriptors (frames 0-{n_db - 1}; ORB {orb_s:.2f} s for "
+          f"{n_db + 1} frames), 8 tables x 14 bits x 64: built in {build_s:.3f} s (CPU {cpu_build_s:.3f} s), "
+          f"tables equal on both devices; (a) 2000 rows with 12 bits flipped: recall {a['recall']:.4f}, "
+          f"false positives {a['false_pos']:.4f} (exact {a['exact_valid']}, LSH {a['lsh_valid']} valid); "
+          f"(b) frame {n_db}: recall {b['recall']:.4f}, false positives {b['false_pos']:.4f} (exact "
+          f"{b['exact_valid']}, LSH {b['lsh_valid']}); card matches equal the CPU's; 2000 queries: LSH "
+          f"{lsh_ms:.4f} ms, K3 exact {k3_ms:.4f} ms; launches {counts}", flush=True)
+    if not (a["recall"] > 0.85 and a["false_pos"] < 0.05):
+        fail(f"LSH near-duplicate recall {a['recall']:.4f} (bound 0.85) or false positives "
+             f"{a['false_pos']:.4f} (bound 0.05)")
+    return res
+
+
+def profile_report(tag: str, fn, units: int, unit: str) -> None:
+    """torch.profiler around one call of `fn` (which does `units` units of
+    work): the device's busy share of the call's wall time (the sum of
+    kernel times: no kernels overlap on one stream), launches per unit,
+    the top kernels by device time and the top host operations by their
+    own time. The profiler slows the host, so the busy share is a lower
+    bound of the unprofiled run's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from opencv_tpu_torch.core.config import ORBConfig
-    from opencv_tpu_torch.slam.vo import VisualOdometry, VOConfig
-
-    vo = VisualOdometry(K, VOConfig(orb=ORBConfig(n_features=2000), tracker=tracker), seed=0)
-    vo.process_sequence(frames[:warmup], chunk=8)
-    torch.cuda.synchronize()
-    tag = f"profile {tracker}"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        vo.process_sequence(frames[warmup: warmup + window], chunk=8)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -756,9 +1152,8 @@ def phase_profile(frames, K, tracker: str = "orb", warmup: int = 40, window: int
     host = [e for e in events if e.device_type == DeviceType.CPU]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     launches = sum(e.count for e in kernels)
-    print(f"[{tag}] frames {warmup}-{warmup + window}: wall {wall:.3f} s "
-          f"({window / wall:.2f} frames/s under the profiler), {launches} kernels "
-          f"({launches / window:.0f} per frame)", flush=True)
+    print(f"[{tag}] wall {wall:.3f} s ({units / wall:.2f} {unit}s/s under the profiler), "
+          f"{launches} kernels ({launches / units:.0f} per {unit})", flush=True)
     if busy <= 0:
         print(f"[{tag}] no kernel time visible to torch.profiler: busy share not measured",
               flush=True)
@@ -770,6 +1165,40 @@ def phase_profile(frames, K, tracker: str = "orb", warmup: int = 40, window: int
     for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]:
         print(f"[{tag}] host {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x  "
               f"{e.key[:100]}", flush=True)
+
+
+def phase_profile(frames, K, tracker: str = "orb", warmup: int = 40, window: int = 8) -> None:
+    """Where the time goes in steady tracking: profile_report over frames
+    [warmup, warmup + window) of a fresh engine that has tracked the first
+    `warmup` frames."""
+    import torch
+
+    from opencv_tpu_torch.core.config import ORBConfig
+    from opencv_tpu_torch.slam.vo import VisualOdometry, VOConfig
+
+    vo = VisualOdometry(K, VOConfig(orb=ORBConfig(n_features=2000), tracker=tracker), seed=0)
+    vo.process_sequence(frames[:warmup], chunk=8)
+    torch.cuda.synchronize()
+    profile_report(f"profile {tracker} frames {warmup}-{warmup + window}",
+                   lambda: vo.process_sequence(frames[warmup: warmup + window], chunk=8), window, "frame")
+
+
+def phase_profile_geometry(frames, K) -> None:
+    """Where the time goes in one warm two-view pair and in one warm
+    calibrate_camera of the calib path's 20 views (its LM is the pattern
+    of the stereo and fisheye refinements; profiling all three takes the
+    profiler minutes to post-process)."""
+    import torch
+
+    from opencv_tpu_torch.geometry import calibration
+
+    imgs = [torch.from_numpy(np.ascontiguousarray(frames[i])).to("cuda") for i in (0, 8)]
+    two_view_pipeline(*imgs, K)
+    profile_report("profile twoview", lambda: two_view_pipeline(*imgs, K), 1, "pair")
+    objs, img1, _, _, _, _ = calib_views()
+    calibration.calibrate_camera(objs, img1, device="cuda")
+    profile_report("profile calibrate_camera",
+                   lambda: calibration.calibrate_camera(objs, img1, device="cuda"), objs.shape[0], "view")
 
 
 def main():
@@ -797,14 +1226,18 @@ def main():
     rows = timed("kernels", phase_kernels, frames[0], rates)
     paths = {"vo_orb": timed("vo_orb", phase_main_path, frames, centres, K),
              "lk": timed("lk", phase_lk_path, frames),
-             "vo_klt": timed("vo_klt", phase_klt, frames, centres, K)}
+             "vo_klt": timed("vo_klt", phase_klt, frames, centres, K),
+             "twoview": timed("twoview", phase_two_view, frames, K),
+             "calib": timed("calib", phase_calib, frames[0]),
+             "lsh": timed("lsh", phase_lsh, frames)}
     timed("profile orb", phase_profile, frames, K, "orb")
-    timed("profile klt", phase_profile, frames, K, "klt")
+    timed("profile klt", phase_profile, frames, K, "klt", 40, 4)
+    timed("profile geometry", phase_profile_geometry, frames, K)
     kernels = []
     for key, row in rows.items():
         by_path = {p: res["launches"][key] for p, res in paths.items()}
         kernels.append(dict(row, launches=sum(by_path.values()), launches_by_path=by_path,
-                            launches_per_frame={p: by_path[p] / paths[p]["frames"] for p in paths},
+                            launches_per_unit={p: by_path[p] / paths[p]["units"] for p in paths},
                             on_main_path=key not in ("fast_score", "lk_sample_clamp")))
     print(json.dumps({"paths": paths}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

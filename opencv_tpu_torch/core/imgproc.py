@@ -207,3 +207,29 @@ def nms_2d(score: torch.Tensor, radius: int = 1) -> torch.Tensor:
             nb = shift2d(score, dy, dx, fill=-float("inf"))
             keep &= (score > nb) if (dy, dx) < (0, 0) else (score >= nb)
     return keep
+
+
+def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Sample img [..., H, W] at continuous (x, y) positions [..., 2],
+    bilinear with edge clamping (not K4's zero-outside window sampler).
+    The arithmetic is the JAX function's, op for op."""
+    h, w = img.shape[-2:]
+    x = xy[..., 0].clamp(0.0, w - 1.0)
+    y = xy[..., 1].clamp(0.0, h - 1.0)
+    x0 = torch.floor(x).to(torch.int64).clamp(0, w - 2)
+    y0 = torch.floor(y).to(torch.int64).clamp(0, h - 2)
+    fx = x - x0.to(torch.float32)
+    fy = y - y0.to(torch.float32)
+    i00 = img[..., y0, x0]
+    i01 = img[..., y0, x0 + 1]
+    i10 = img[..., y0 + 1, x0]
+    i11 = img[..., y0 + 1, x0 + 1]
+    top = i00 * (1.0 - fx) + i01 * fx
+    bot = i10 * (1.0 - fx) + i11 * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def remap(img: torch.Tensor, map_xy: torch.Tensor) -> torch.Tensor:
+    """cv::remap analog: out[y, x] = img(map_xy[y, x, 0], map_xy[y, x, 1]),
+    bilinear, clamped at the edges."""
+    return bilinear_sample(img, map_xy)

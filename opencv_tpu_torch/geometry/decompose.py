@@ -1,5 +1,6 @@
-"""Homography -> motion candidates (the engine's subset of
-opencv_tpu/geometry/decompose.py)."""
+"""Matrix decompositions (port of opencv_tpu/geometry/decompose.py):
+homography -> motion candidates, projection matrix -> K/R/C, and Bouguet
+stereo rectification."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ from typing import NamedTuple
 
 import torch
 
-from opencv_tpu_torch.geometry.rotation import project_to_rotation
+from opencv_tpu_torch.geometry.rotation import project_to_rotation, rodrigues, rodrigues_inv
 
 
 class HomographyDecomposition(NamedTuple):
@@ -65,3 +66,62 @@ def decompose_homography(H: torch.Tensor, K: torch.Tensor) -> HomographyDecompos
     ts = torch.stack([c[1] for c in cands])
     ns = torch.stack([c[2] for c in cands])
     return HomographyDecomposition(R=Rs, t=ts, n=ns, valid=torch.isfinite(Rs).all(dim=(1, 2)))
+
+
+def decompose_projection_matrix(P: torch.Tensor):
+    """P [3, 4] -> (K [3, 3], R [3, 3], C [3] camera centre)
+    (cv::decomposeProjectionMatrix): RQ by a QR of the row-flipped M, then
+    K's diagonal made positive and K[2, 2] = 1."""
+    M = P[:, :3]
+    rev = torch.flip(torch.eye(3, dtype=P.dtype, device=P.device), [0])
+    q, r = torch.linalg.qr((rev @ M).T)
+    K = rev @ r.T @ rev
+    R = rev @ q.T
+    d = torch.sign(torch.diagonal(K))
+    d = torch.where(d == 0, torch.ones_like(d), d)
+    K = K * d[None, :]
+    R = R * d[:, None]
+    K = K / K[2, 2]
+    C = -torch.linalg.inv_ex(M)[0] @ P[:, 3]
+    return K, R, C
+
+
+class StereoRectification(NamedTuple):
+    R1: torch.Tensor
+    R2: torch.Tensor
+    P1: torch.Tensor
+    P2: torch.Tensor
+    Q: torch.Tensor
+
+
+def stereo_rectify(
+    K1: torch.Tensor, K2: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
+    image_size: tuple[int, int],
+) -> StereoRectification:
+    """Bouguet rectification (cv::stereoRectify analog): each camera turns
+    by half the relative rotation, then the x axis is aligned with the
+    baseline."""
+    h, w = image_size
+    dt, dev = R.dtype, R.device
+    rvec = rodrigues_inv(R)
+    r_half = rodrigues(-0.5 * rvec)
+    t_rect = r_half @ t
+    e1 = t_rect / torch.linalg.vector_norm(t_rect).clamp(min=1e-12)
+    e1 = e1 * torch.sign(torch.where(t_rect[0].abs() > 1e-9, t_rect[0], torch.ones_like(t_rect[0])))
+    e2 = _unit(torch.linalg.cross(torch.tensor([0.0, 0.0, 1.0], dtype=dt, device=dev), e1))
+    e3 = torch.linalg.cross(e1, e2)
+    Rrect = torch.stack([e1, e2, e3])
+    R1 = Rrect @ r_half
+    R2 = Rrect @ rodrigues(0.5 * rvec).T
+    f = 0.5 * (K1[0, 0] + K2[1, 1])
+    cx, cy = w / 2.0, h / 2.0
+    zero, one = torch.zeros_like(f), torch.ones_like(f)
+    baseline = torch.linalg.vector_norm(t)
+    P1 = torch.stack([torch.stack([f, zero, zero + cx, zero]), torch.stack([zero, f, zero + cy, zero]),
+                      torch.stack([zero, zero, one, zero])])
+    P2 = P1.clone()
+    P2[0, 3] = -f * baseline
+    Q = torch.stack([torch.stack([one, zero, zero, zero - cx]), torch.stack([zero, one, zero, zero - cy]),
+                     torch.stack([zero, zero, zero, f]),
+                     torch.stack([zero, zero, 1.0 / baseline.clamp(min=1e-12), zero])])
+    return StereoRectification(R1=R1, R2=R2, P1=P1, P2=P2, Q=Q)

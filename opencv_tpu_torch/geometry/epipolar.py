@@ -1,10 +1,11 @@
-"""Two-view epipolar geometry (the engine's subset of
-opencv_tpu/geometry/epipolar.py): 8-point essential estimation with
-RANSAC, IRLS refit and Sampson Gauss-Newton polish, E decomposition,
-recoverPose and DLT triangulation. Batched over leading dimensions.
+"""Two-view epipolar geometry (port of opencv_tpu/geometry/epipolar.py):
+8-point essential estimation with RANSAC, IRLS refit and Sampson
+Gauss-Newton polish, the 5-point RANSAC, E decomposition, recoverPose,
+DLT triangulation and optimal match correction. Batched over leading
+dimensions.
 
 Numerics follow the JAX package: the minimal-sample nullspace is the last
-column of a Householder QR of A^T (written out here, so a batch of 1024
+column(s) of a Householder QR of A^T (written out here, so a batch of 1024
 small factorizations is a few dozen batched tensor ops), overdetermined
 fits take the SVD, and the 3x3 SVDs are the same one-sided Jacobi.
 """
@@ -19,6 +20,13 @@ import torch
 from opencv_tpu_torch.core.config import RansacConfig
 from opencv_tpu_torch.geometry import ransac as ransac_mod
 from opencv_tpu_torch.geometry.rotation import solve3
+
+
+def normalize_pixels(pts: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Pixel coords [..., 2] -> normalized camera coords (x - c) / f."""
+    return torch.stack(
+        [(pts[..., 0] - K[0, 2]) / K[0, 0], (pts[..., 1] - K[1, 2]) / K[1, 1]], dim=-1
+    )
 
 
 def _hartley_normalize(
@@ -49,10 +57,11 @@ def _hartley_normalize(
     return (pts - mean[..., None, :]) * scale[..., None, None], T
 
 
-def _householder_null(A: torch.Tensor) -> torch.Tensor:
-    """Last column of the complete QR of A^T for A [..., m, k], m < k:
-    the exact nullspace of a minimal sample. Reflectors follow LAPACK's
-    convention (v = x + sign(x0) |x| e1)."""
+def _householder_null(A: torch.Tensor, cols: int = 1) -> torch.Tensor:
+    """The last `cols` columns of the complete QR of A^T for A [..., m, k],
+    m < k: the exact nullspace of a minimal sample. [..., k] for one
+    column, else [..., k, cols]. Reflectors follow LAPACK's convention
+    (v = x + sign(x0) |x| e1), so every device builds the same basis."""
     m, k = A.shape[-2], A.shape[-1]
     X = A.transpose(-1, -2).clone()  # [..., k, m]
     vs = []
@@ -66,13 +75,13 @@ def _householder_null(A: torch.Tensor) -> torch.Tensor:
         sub = X[..., j:, j:]
         X[..., j:, j:] = sub - 2.0 * v[..., :, None] * (v[..., None, :] @ sub)
         vs.append(v)
-    q = torch.zeros(A.shape[:-2] + (k,), dtype=A.dtype, device=A.device)
-    q[..., k - 1] = 1.0
+    q = torch.zeros(A.shape[:-2] + (k, cols), dtype=A.dtype, device=A.device)
+    q[..., k - cols :, :] = torch.eye(cols, dtype=A.dtype, device=A.device)
     for j in reversed(range(m)):
-        v = vs[j]
-        tail = q[..., j:]
-        q[..., j:] = tail - 2.0 * v * (v * tail).sum(-1, keepdim=True)
-    return q
+        v = vs[j][..., :, None]
+        tail = q[..., j:, :]
+        q[..., j:, :] = tail - 2.0 * v * (v * tail).sum(-2, keepdim=True)
+    return q[..., 0] if cols == 1 else q
 
 
 def _nullspace(A: torch.Tensor) -> torch.Tensor:
@@ -219,6 +228,75 @@ def decompose_essential(E: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, to
     return u @ W @ vt, u @ W.T @ vt, u[..., :, 2]
 
 
+def _correction_cost(t, f1, f2, a, b, c, d):
+    """HZ 12.1's squared distance s(t) of a match to the epipolar pencil."""
+    num1 = t * t / (1.0 + f1 * f1 * t * t)
+    den2 = (a * t + b) ** 2 + f2 * f2 * (c * t + d) ** 2
+    return num1 + (c * t + d) ** 2 / den2.clamp(min=1e-20)
+
+
+def correct_matches(
+    F: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
+    n_grid: int = 64, newton_iters: int = 8,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Optimal two-view correction (HZ algorithm 12.1, cv::correctMatches):
+    move each match [N, 2] the least total squared distance onto
+    x2^T F x1 = 0. The cost s(t) is minimized over a tan-space grid of
+    `n_grid` samples, then `newton_iters` guarded Newton steps (derivatives
+    by torch.func.grad), and compared with the t = inf branch."""
+    dt, dev = F.dtype, F.device
+    one = torch.ones_like(x1[:, 0])
+    zero = torch.zeros_like(one)
+
+    def shift(p):
+        return torch.stack([torch.stack([one, zero, p[:, 0]], -1),
+                            torch.stack([zero, one, p[:, 1]], -1),
+                            torch.stack([zero, zero, one], -1)], -2)
+
+    def rot(e):
+        return torch.stack([torch.stack([e[:, 0], e[:, 1], zero], -1),
+                            torch.stack([-e[:, 1], e[:, 0], zero], -1),
+                            torch.stack([zero, zero, one], -1)], -2)
+
+    T1, T2 = shift(x1), shift(x2)
+    Fp = T2.transpose(-1, -2) @ F @ T1
+    U, _, Vh = torch.linalg.svd(Fp)
+    e1, e2 = Vh[:, -1, :], U[:, :, -1]  # right and left epipoles
+    e1 = e1 / torch.sqrt(e1[:, 0] ** 2 + e1[:, 1] ** 2).clamp(min=1e-12)[:, None]
+    e2 = e2 / torch.sqrt(e2[:, 0] ** 2 + e2[:, 1] ** 2).clamp(min=1e-12)[:, None]
+    R1, R2 = rot(e1), rot(e2)
+    Fr = R2 @ Fp @ R1.transpose(-1, -2)
+    prm = (e1[:, 2], e2[:, 2], Fr[:, 1, 1], Fr[:, 1, 2], Fr[:, 2, 1], Fr[:, 2, 2])
+    f1, f2, a, b, c, d = prm
+
+    theta = torch.linspace(-math.pi / 2 * 0.999, math.pi / 2 * 0.999, n_grid, dtype=dt, device=dev)
+    ts = torch.tan(theta)
+    cs = _correction_cost(ts[None, :], *(p[:, None] for p in prm))
+    t = ts[torch.argmin(cs, dim=1)]
+    dc = torch.func.grad(_correction_cost)
+    d1 = torch.func.vmap(dc)
+    d2 = torch.func.vmap(torch.func.grad(dc))
+    for _ in range(newton_iters):
+        h = d2(t, *prm)
+        step = (d1(t, *prm) / torch.where(h.abs() < 1e-12, torch.full_like(h, 1e-12), h)).clamp(-1e3, 1e3)
+        tn = t - step
+        t = torch.where(_correction_cost(tn, *prm) < _correction_cost(t, *prm), tn, t)
+    cinf = 1.0 / (f1 * f1).clamp(min=1e-20) + c * c / (a * a + f2 * f2 * c * c).clamp(min=1e-20)
+    use_inf = (cinf < _correction_cost(t, *prm))[:, None]
+    # closest points on l1(t) = (t f1, 1, -t) and l2(t) = Fr (0, t, 1)
+    l1 = torch.where(use_inf, torch.stack([f1, zero, -one], -1), torch.stack([t * f1, one, -t], -1))
+    xh = torch.where(use_inf, torch.stack([zero, one, zero], -1), torch.stack([zero, t, one], -1))
+    l2 = (Fr @ xh[:, :, None])[:, :, 0]
+
+    def closest_to_origin(l):
+        s = (l[:, 0] ** 2 + l[:, 1] ** 2).clamp(min=1e-20)
+        return torch.stack([-l[:, 0] * l[:, 2] / s, -l[:, 1] * l[:, 2] / s, one], -1)
+
+    q1 = (T1 @ R1.transpose(-1, -2) @ closest_to_origin(l1)[:, :, None])[:, :, 0]
+    q2 = (T2 @ R2.transpose(-1, -2) @ closest_to_origin(l2)[:, :, None])[:, :, 0]
+    return q1[:, :2] / q1[:, 2:], q2[:, :2] / q2[:, 2:]
+
+
 class RecoveredPose(NamedTuple):
     R: torch.Tensor
     t: torch.Tensor
@@ -334,3 +412,41 @@ def find_essential_ransac(
     E = torch.where(keep_gn, E_gn, E)
     inliers = torch.where(keep_gn, inl_gn, inliers)
     return ransac_mod.RansacResult(model=E, inliers=inliers, n_inliers=inliers.sum(), ok=res.ok)
+
+
+def find_essential_ransac_5pt(
+    gen: torch.Generator | None,
+    x1: torch.Tensor,
+    x2: torch.Tensor,
+    valid: torch.Tensor | None = None,
+    cfg: RansacConfig = RansacConfig(threshold=1e-3),
+    subsets: torch.Tensor | None = None,
+) -> ransac_mod.RansacResult:
+    """findEssentialMat with the 5-point minimal kernel
+    (geometry/five_point.py) on normalized coords; cfg.threshold is the
+    LINEAR Sampson bound. Every candidate of every subset (H x 10) is
+    Sampson-scored in one batch; argmax ties go to the first candidate.
+    Then two all-inlier 8-point refits. `subsets` [H, 5] injects samples."""
+    from opencv_tpu_torch.geometry.five_point import five_point
+
+    n = x1.shape[0]
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.bool, device=x1.device)
+    thr2 = cfg.threshold * cfg.threshold
+    if subsets is None:
+        subsets = ransac_mod.sample_subsets(gen, n, valid, cfg.n_hypotheses, 5)
+    res = five_point(x1[subsets], x2[subsets])
+    Es = res.E.reshape(-1, 3, 3)  # [H*10, 3, 3]
+    inlier_mat = (sampson_error(Es, x1, x2) < thr2) & valid[None, :]
+    scores = torch.where(res.valid.reshape(-1), inlier_mat.sum(dim=1), -1)
+    best = torch.argmax(scores)
+    E = Es[best]
+    inliers = inlier_mat[best]
+    ok = scores[best] >= 5
+    for _ in range(2):
+        E_ref, ok_ref = eight_point(x1, x2, essential=True, weights=inliers.to(x1.dtype))
+        new_inliers = (sampson_error(E_ref, x1, x2) < thr2) & valid
+        better = ok_ref & (new_inliers.sum() >= inliers.sum())
+        E = torch.where(better, E_ref, E)
+        inliers = torch.where(better, new_inliers, inliers)
+    return ransac_mod.RansacResult(model=E, inliers=inliers, n_inliers=inliers.sum(), ok=ok)

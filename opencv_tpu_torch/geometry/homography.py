@@ -1,5 +1,5 @@
-"""Homography estimation: normalized 4-point DLT + RANSAC (the engine's
-subset of opencv_tpu/geometry/homography.py)."""
+"""Homography and fundamental-matrix estimation: normalized DLT kernels +
+RANSAC (port of opencv_tpu/geometry/homography.py)."""
 
 from __future__ import annotations
 
@@ -7,7 +7,9 @@ import torch
 
 from opencv_tpu_torch.core.config import RansacConfig
 from opencv_tpu_torch.geometry import ransac as ransac_mod
-from opencv_tpu_torch.geometry.epipolar import _hartley_normalize, _nullspace
+from opencv_tpu_torch.geometry.epipolar import (
+    _hartley_normalize, _nullspace, eight_point, sampson_error,
+)
 
 
 def dlt_homography(x1: torch.Tensor, x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -58,5 +60,27 @@ def find_homography_ransac(
         gen, n, valid, 4,
         lambda idx: dlt_homography(x1[idx], x2[idx]),
         lambda H: homography_transfer_error(H, x1, x2),
+        cfg2, subsets=subsets,
+    )
+
+
+def find_fundamental_ransac(
+    gen: torch.Generator | None,
+    x1: torch.Tensor,
+    x2: torch.Tensor,
+    valid: torch.Tensor | None = None,
+    cfg: RansacConfig = RansacConfig(threshold=1.0),
+    subsets: torch.Tensor | None = None,
+) -> ransac_mod.RansacResult:
+    """findFundamentalMat(RANSAC) analog: 8-point kernel, Sampson error,
+    LINEAR pixel threshold. `subsets` [H, 8] injects the samples."""
+    n = x1.shape[0]
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.bool, device=x1.device)
+    cfg2 = RansacConfig(cfg.n_hypotheses, cfg.threshold ** 2, cfg.confidence, cfg.seed)
+    return ransac_mod.ransac(
+        gen, n, valid, 8,
+        lambda idx: eight_point(x1[idx], x2[idx], essential=False),
+        lambda F: sampson_error(F, x1, x2),
         cfg2, subsets=subsets,
     )

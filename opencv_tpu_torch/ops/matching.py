@@ -82,6 +82,16 @@ def knn_match(
     )
 
 
+def radius_match_mask(
+    query: torch.Tensor, train: torch.Tensor, max_distance: float,
+    query_valid: torch.Tensor | None = None, train_valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Boolean [Nq, Nt]: pairs within `max_distance` Hamming
+    (DescriptorMatcher::radiusMatch analog); invalid rows/cols never match
+    below 512. Callers reduce the mask themselves."""
+    return hamming_matrix(query, train, query_valid, train_valid) <= max_distance
+
+
 # Map-scale matching: at or beyond this many train descriptors the dense
 # [Nq, Nt] distance matrix is replaced by the streaming 2-NN kernel K3.
 STREAMING_TRAIN_THRESHOLD = 16384

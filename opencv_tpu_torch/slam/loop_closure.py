@@ -1,8 +1,9 @@
 """Loop-closure detection and pose-graph correction (port of
 opencv_tpu/slam/loop_closure.py): retrieval by ratio-tested descriptor
-votes over the keyframe database and pose-graph relaxation over
-keyframes. (The engine verifies a candidate with its own match + PnP
-stage, `slam/vo.py`.)
+votes over the keyframe database, verification by PnP-RANSAC of the
+query's points against a candidate's landmarks, and pose-graph
+relaxation over keyframes. (The engine verifies a candidate with its own
+match + PnP stage, `slam/vo.py`.)
 
 These helpers take and return numpy arrays; `device=None` runs their
 tensor work on the card.
@@ -15,8 +16,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from opencv_tpu_torch.core.config import MatchConfig
+from opencv_tpu_torch.core.config import MatchConfig, RansacConfig
 from opencv_tpu_torch.device import resolve_device
+from opencv_tpu_torch.geometry import pnp
 from opencv_tpu_torch.ops import matching
 from opencv_tpu_torch.optim import pose_graph
 
@@ -56,6 +58,44 @@ def retrieve_candidates(
     order = np.argsort(-votes)
     return [LoopCandidate(int(kf), int(votes[kf])) for kf in order[:max_candidates]
             if votes[kf] >= min_votes]
+
+
+def verify_candidate(
+    gen: torch.Generator | None,
+    query_xy: np.ndarray,  # [N, 2] normalized coords of the query keyframe
+    query_desc: np.ndarray,
+    query_valid: np.ndarray,
+    cand_landmark_pos: np.ndarray,  # [M, 3] world positions
+    cand_landmark_desc: np.ndarray,  # [M, 8]
+    cand_landmark_valid: np.ndarray,
+    min_inliers: int = 25,
+    threshold: float = 3e-3,
+    device=None,
+    subsets: torch.Tensor | None = None,
+) -> tuple[np.ndarray, np.ndarray, int] | None:
+    """PnP of the query's 2D points against the candidate's 3D landmarks
+    (1024 hypotheses, P3P). Returns (rvec, tvec, n_inliers) of the query
+    pose in the world frame, or None if verification fails. `subsets`
+    [H, 4] injects the RANSAC samples (then H of them are scored)."""
+    dev = resolve_device(device)
+    m = matching.knn_match(
+        _desc(query_desc, dev), _desc(cand_landmark_desc, dev),
+        query_valid=torch.as_tensor(query_valid, device=dev),
+        train_valid=torch.as_tensor(cand_landmark_valid, device=dev),
+        config=MatchConfig(cross_check=False),
+    )
+    if int(m.valid.sum()) < min_inliers:
+        return None
+    obj = torch.as_tensor(np.asarray(cand_landmark_pos, np.float32), device=dev)[m.train_idx]
+    res = pnp.solve_pnp_ransac(
+        gen, obj, torch.as_tensor(np.asarray(query_xy, np.float32), device=dev), valid=m.valid,
+        cfg=RansacConfig(n_hypotheses=1024, threshold=threshold),
+        subsets=None if subsets is None else subsets.to(dev),
+    )
+    n_inl = int(res.n_inliers)
+    if not bool(res.ok) or n_inl < min_inliers:
+        return None
+    return res.rvec.cpu().numpy(), res.tvec.cpu().numpy(), n_inl
 
 
 def correct_poses(

@@ -10,7 +10,9 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "opencv_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -29,11 +31,56 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 
 def test_every_slice_module_is_checked():
     """The import checks below walk the whole package; the LK slice's
-    modules are among them."""
+    and the geometry slice's modules are among them."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for mod in ("ops/lk.py", "ops/gftt.py", "ops/cuda/lk_sample.py", "core/pyramid.py",
-                "slam/vo.py"):
+                "slam/vo.py", "geometry/five_point.py", "geometry/epnp.py", "geometry/ap3p.py",
+                "geometry/ippe.py", "geometry/affine2d.py", "geometry/calibration.py",
+                "optim/levmarq.py", "optim/minimize.py", "ops/lsh.py"):
         assert f"opencv_tpu_torch/{mod}" in names
+
+
+NUMPY_ENTRY_POINTS = ("calibrate_camera", "stereo_calibrate", "calibrate_fisheye",
+                      "init_undistort_rectify_map", "build_lsh_index", "verify_candidate", "solve_lp")
+
+
+def _numpy_entry_points():
+    """{name: call} of every entry point that takes numpy and makes
+    tensors, each called with no device."""
+    from opencv_tpu_torch.geometry import calibration
+    from opencv_tpu_torch.ops import lsh
+    from opencv_tpu_torch.optim import minimize
+    from opencv_tpu_torch.slam import loop_closure
+
+    obj = np.zeros((2, 6, 3), np.float32)
+    obj[:, :, 0] = np.arange(6) % 3
+    obj[:, :, 1] = np.arange(6) // 3
+    img = obj[..., :2] * 50.0 + 100.0
+    K = np.eye(3, dtype=np.float32)
+    dist = np.zeros(5, np.float32)
+    desc = np.zeros((4, 8), np.uint32)
+    xy = np.zeros((4, 2), np.float32)
+    ok = np.ones(4, bool)
+    return {
+        "calibrate_camera": lambda: calibration.calibrate_camera(obj, img, refine_iters=1),
+        "stereo_calibrate": lambda: calibration.stereo_calibrate(obj, img, img, K, dist, K, dist),
+        "calibrate_fisheye": lambda: calibration.calibrate_fisheye(obj, img, refine_iters=1),
+        "init_undistort_rectify_map": lambda: calibration.init_undistort_rectify_map(
+            K, dist, None, K, (4, 4)),
+        "build_lsh_index": lambda: lsh.build_lsh_index(desc, key_bits=4),
+        "verify_candidate": lambda: loop_closure.verify_candidate(
+            None, xy, desc, ok, np.zeros((4, 3), np.float32), desc, ok),
+        "solve_lp": lambda: minimize.solve_lp([1.0], [[1.0]], [1.0]),
+    }
+
+
+@pytest.mark.parametrize("name", NUMPY_ENTRY_POINTS)
+def test_numpy_entry_point_raises_without_a_card(monkeypatch, name):
+    """No device given and no card: the entry point refuses instead of
+    falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _numpy_entry_points()[name]()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
