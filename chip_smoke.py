@@ -4,7 +4,8 @@
 
 Phases:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-  2. build: every kernel of csrc/ with nvcc for sm_90a, all in parallel;
+  2. build: every kernel of csrc/ with nvcc for sm_90a and the host
+     Munkres solver with g++, all in parallel;
   3. kernels vs plain on the card, at the shapes the main paths give them:
      K1 FAST score + NMS at the 8 ORB levels of a 480x640 frame (timed as
      the one multi-level launch ORB makes, and per level through the
@@ -12,13 +13,14 @@ Phases:
      Hamming at 2000 x 128000 with ties and ~10% invalid rows, K4 LK window
      sampling at its three sites on the 480x640 level (templates C=3 win
      21, patches C=1 win 48 at integer origins, polish C=1 win 21; N = 2000
-     and 512, with points on every border, outside, far outside and
-     non-finite; each site timed beside grid_sample and its bound), K5
+     and 512 (the LK path's) and 32 (DetectionBasedTracker's), with points
+     on every border, outside, far outside and non-finite; each site timed
+     beside grid_sample and its bound), K5
      edge-clamped windows (win 21, N = 512, interior points); all exact;
      device times by CUDA events (kernel, plain version, one PyTorch
      library call where one computes the same function) beside the bound,
      and the first designs' times as labelled constants (FIRST_DESIGN_MS);
-  4. the six paths, each with the launch counts reset just before a
+  4. the ten paths, each with the launch counts reset just before each
      warm run and read just after it:
      a. ORB VO: VisualOdometry.process_sequence on a seeded 480x640
         synthetic sequence at bench_config5's engine config
@@ -52,10 +54,33 @@ Phases:
         rows); near-duplicate queries (recall > 0.85, false positives
         < 0.05) and frame 64's, against the exact 2-NN through K3; the
         card's matches equal to the CPU's; build and query times;
-  5. profile: torch.profiler over frames 40-48 of steady tracking of the
-     ORB engine (one chunk), frames 40-44 of the klt engine, one two-view
-     pair and one calibrate_camera of 20 views (device busy share,
-     kernels per unit, top kernels, top host operations).
+     g. tbd: examples/tbd_app.py's frame loop (two classes, a Tracker
+        each, ground-truth detections jittered by 0.8 px with 15 %
+        dropped, MotMetrics from frame 5) on its scene under history
+        distributions "1" and "7,3" (MOTA > 0.8 for both classes), then
+        a crowd of 32 pedestrians and 8 vehicles over 120 frames; cold
+        then warm twice; the CPU's run gives the same confirmed IDs and
+        MOT counters and boxes within 1e-3 px; tracking-only frames/s;
+     h. hog: the TBD app in HOG mode: a linear SVM fitted on the port's
+        descriptors of 60 + 60 bar windows (tests/test_hog.py's), 120
+        frames 480x640 of 6 bar pedestrians, detectMultiScale at the
+        reference's defaults (scale 1.05, 64 levels: 28 fit) with the
+        hits grouped, a Tracker, MOTA against the planted boxes; HOG
+        detection and frame frames/s; cold (8 frames) then warm twice;
+        4 frames against the CPU (the same boxes, scores within 1e-3);
+     i. dbt: DetectionBasedTracker with this detector every 4 frames and
+        LK between on the first 32 frames of the scene, cold (8 frames)
+        then warm twice; its level-0 LK must launch K4; 5 frames against the CPU
+        (the same confirmed IDs, boxes within 0.05 px, the LK rule);
+     j. lane: examples/lane_detection.py at 480x640 on 30 frames (blur,
+        Canny, Hough segments): both lanes in every frame; cold then warm
+        twice; frame 0 against the CPU (equal edges, segments within
+        0.5 px);
+  5. profile: torch.profiler over frames 40-44 of steady tracking of the
+     ORB engine and of the klt engine, one two-view
+     pair, one calibrate_camera of 20 views and one warm HOG-mode frame
+     (detect and track) (device busy share, kernels per unit, top
+     kernels, top host operations).
 Prints a JSON line of path results (each with its unit and unit count),
 a JSON line of kernels, the card line, and last {"ok": true, "device":
 {...}}. Exits non-zero on any failure, and without a card.
@@ -63,6 +88,7 @@ a JSON line of kernels, the card line, and last {"ok": true, "device":
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -90,6 +116,9 @@ POPC_PER_CLK_PER_SM = 16  # 32-bit __popc
 # record.
 FIRST_DESIGN_MS = {"fast_corners": 0.1119, "fast_score": 0.0179, "lk_sample": 0.0601,
                    "lk_sample_n512": 0.0232, "lk_sample_clamp": 0.0044}
+
+# K4's point counts: the LK path's 2000 and 512, DetectionBasedTracker's 32
+K4_N = (2000, 512, 32)
 
 
 def fail(msg: str) -> None:
@@ -144,6 +173,26 @@ def device_time_ms(fn, calls: int = 10, trials: int = 20) -> float:
 
 
 # ------------------------------------------------------------ synthetic scene
+
+
+def warm_runs_of(fn, runs: int) -> tuple[list, list, list]:
+    """Run `fn()` warm `runs` times, each between a reset of the launch
+    counts and a read of them. Returns the results, the seconds and the
+    launch counts, one of each per run."""
+    import torch
+
+    from opencv_tpu_torch.ops import cuda as cuda_ops
+
+    outs, secs, counts = [], [], []
+    for _ in range(runs):
+        cuda_ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts.append(dict(cuda_ops.launch_counts))
+    return outs, secs, counts
 
 
 def make_sequence(n_frames: int = 120, h: int = 480, w: int = 640, seed: int = 7,
@@ -413,8 +462,10 @@ def window_grid(pts, win: int, h: int, w: int):
 
 
 def phase_lk_kernels(lvl0, rates: dict) -> dict:
-    """K4 at its three sites on the 480x640 level and K5, exact against
-    their plain versions, timed beside grid_sample and the bound."""
+    """K4 at its three sites on the 480x640 level, at the LK path's N =
+    2000 and 512 and DetectionBasedTracker's N = 32 (its
+    max_track_points), and K5, exact against their plain versions, timed
+    beside grid_sample and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -428,7 +479,7 @@ def phase_lk_kernels(lvl0, rates: dict) -> dict:
              ("polish", (lvl0,), 21, False))
     per_n = {}
     err4 = 0.0
-    for n in (2000, 512):
+    for n in K4_N:
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0, sites={})
         for name, chans, win, integer in sites:
             pts = lk_points(n, h, w, win, seed=n + win)
@@ -473,9 +524,9 @@ def phase_lk_kernels(lvl0, rates: dict) -> dict:
         tot["bound_by"] = ("bytes" if tot["bytes"] / HBM_BYTES_PER_S >= tot["ops"] / rates["fp32_add"]
                            else "operations")
         per_n[n] = tot
-        old = FIRST_DESIGN_MS["lk_sample" if n == 2000 else "lk_sample_n512"]
-        print(f"[K4] three sites, N={n}: kernel {tot['ms']:.4f} ms (first design, a constant: "
-              f"{old} ms), plain {tot['plain_ms']:.4f} ms, grid_sample {tot['library_ms']:.4f} ms, bound "
+        old = FIRST_DESIGN_MS.get({2000: "lk_sample", 512: "lk_sample_n512"}.get(n))
+        first = "" if old is None else f" (first design, a constant: {old} ms)"
+        print(f"[K4] three sites, N={n}: kernel {tot['ms']:.4f} ms{first}, plain {tot['plain_ms']:.4f} ms, grid_sample {tot['library_ms']:.4f} ms, bound "
               f"{tot['bound_ms']:.4f} ms ({tot['bound_by']})", flush=True)
     t = per_n[2000]
     rows = {"lk_sample": dict(
@@ -485,10 +536,10 @@ def phase_lk_kernels(lvl0, rates: dict) -> dict:
         replaces="opencv_tpu/ops/pallas/lk_sample.py:165",
         max_abs_err=err4, ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-        shapes=[[len(ch), h, w, 2000, win] for _, ch, win, _ in sites],
+        shapes=[[len(ch), h, w, n, win] for n in K4_N for _, ch, win, _ in sites],
         sites=t["sites"],
-        at_n512={k: per_n[512][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                            "sites")},
+        **{f"at_n{n}": {k: per_n[n][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                 "bound_by", "sites")} for n in K4_N[1:]},
     )}
 
     # K5: edge-clamped single-channel windows, its documented domain
@@ -528,7 +579,6 @@ def phase_main_path(frames, centres, K, warm_runs: int = 2) -> dict:
     import torch
 
     from opencv_tpu_torch.core.config import ORBConfig
-    from opencv_tpu_torch.ops import cuda as cuda_ops
     from opencv_tpu_torch.slam.vo import VisualOdometry, VOConfig
     from opencv_tpu_torch.utils.evaluate import ate_rmse
 
@@ -539,20 +589,16 @@ def phase_main_path(frames, centres, K, warm_runs: int = 2) -> dict:
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
 
-    warm_s, runs = [], []
-    for _ in range(warm_runs):
+    def run():
         vo = VisualOdometry(K, cfg, seed=0)
-        cuda_ops.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        traj = vo.process_sequence(frames, chunk=8)
-        torch.cuda.synchronize()
-        warm_s.append(time.perf_counter() - t0)
-        runs.append((vo, traj, dict(cuda_ops.launch_counts)))
+        return vo, vo.process_sequence(frames, chunk=8)
+
+    outs, warm_s, runs = warm_runs_of(run, warm_runs)
+    for c in runs:
         for k in ("fast_corners", "knn2_hamming"):
-            if runs[-1][2][k] <= 0:
+            if c[k] <= 0:
                 fail(f"kernel {k} was not launched on the main path")
-    vo, traj, counts = runs[0]
+    (vo, traj), counts = outs[0], runs[0]
     warm = statistics.median(warm_s)
 
     if traj.shape != (n, 3) or not np.isfinite(traj).all():
@@ -615,7 +661,6 @@ def phase_lk_path(frames, warm_runs: int = 2, dev: str = "cuda") -> dict:
     import torch
 
     from opencv_tpu_torch.core.config import LKConfig
-    from opencv_tpu_torch.ops import cuda as cuda_ops
     from opencv_tpu_torch.ops import gftt, lk
 
     cfg = LKConfig(win_size=21, n_levels=4)
@@ -625,18 +670,10 @@ def phase_lk_path(frames, warm_runs: int = 2, dev: str = "cuda") -> dict:
     lk_config2_run(clip, cfg, dev)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    warm_s, runs = [], []
-    for _ in range(warm_runs):
-        cuda_ops.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tracked, redetect = lk_config2_run(clip, cfg, dev)
-        torch.cuda.synchronize()
-        warm_s.append(time.perf_counter() - t0)
-        runs.append((tracked, redetect, dict(cuda_ops.launch_counts)))
-        if runs[-1][2]["lk_sample"] <= 0:
-            fail("kernel lk_sample was not launched on the LK path")
-    tracked, redetect, counts = runs[0]
+    outs, warm_s, runs = warm_runs_of(lambda: lk_config2_run(clip, cfg, dev), warm_runs)
+    if any(c["lk_sample"] <= 0 for c in runs):
+        fail("kernel lk_sample was not launched on the LK path")
+    (tracked, redetect), counts = outs[0], runs[0]
     warm = statistics.median(warm_s)
     per_pair = counts["lk_sample"] / (n - 1)
 
@@ -700,7 +737,6 @@ def phase_klt(frames, centres, K, warm_runs: int = 2) -> dict:
     import torch
 
     from opencv_tpu_torch.core.config import ORBConfig
-    from opencv_tpu_torch.ops import cuda as cuda_ops
     from opencv_tpu_torch.slam.vo import VisualOdometry, VOConfig
     from opencv_tpu_torch.utils.evaluate import ate_rmse
 
@@ -710,19 +746,14 @@ def phase_klt(frames, centres, K, warm_runs: int = 2) -> dict:
     VisualOdometry(K, cfg, seed=0).process_sequence(frames)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    warm_s, runs = [], []
-    for _ in range(warm_runs):
+    def run():
         vo = VisualOdometry(K, cfg, seed=0)
-        cuda_ops.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        traj = vo.process_sequence(frames)
-        torch.cuda.synchronize()
-        warm_s.append(time.perf_counter() - t0)
-        runs.append((vo, traj, dict(cuda_ops.launch_counts)))
-        if runs[-1][2]["lk_sample"] <= 0:
-            fail("kernel lk_sample was not launched by the klt engine")
-    vo, traj, counts = runs[0]
+        return vo, vo.process_sequence(frames)
+
+    outs, warm_s, runs = warm_runs_of(run, warm_runs)
+    if any(c["lk_sample"] <= 0 for c in runs):
+        fail("kernel lk_sample was not launched by the klt engine")
+    (vo, traj), counts = outs[0], runs[0]
     warm = statistics.median(warm_s)
     if traj.shape != (n, 3) or not np.isfinite(traj).all():
         fail(f"klt trajectory shape {traj.shape} or non-finite values")
@@ -822,7 +853,6 @@ def phase_two_view(frames, K, warm_runs: int = 3, dev: str = "cuda") -> dict:
     with the same samples."""
     import torch
 
-    from opencv_tpu_torch.ops import cuda as cuda_ops
     from opencv_tpu_torch.slam.vo import _np_rodrigues
 
     a, b = 0, 8
@@ -833,18 +863,8 @@ def phase_two_view(frames, K, warm_runs: int = 3, dev: str = "cuda") -> dict:
     two_view_pipeline(*imgs, K)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    warm_s = []
-    for i in range(warm_runs):
-        if i == 0:
-            cuda_ops.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = two_view_pipeline(*imgs, K)
-        torch.cuda.synchronize()
-        warm_s.append(time.perf_counter() - t0)
-        if i == 0:
-            counts = dict(cuda_ops.launch_counts)
-            card = out
+    outs, warm_s, runs = warm_runs_of(lambda: two_view_pipeline(*imgs, K), warm_runs)
+    card, counts = outs[0], runs[0]
     if counts["fast_corners"] <= 0:
         fail("kernel fast_corners was not launched on the two-view path")
     t0 = time.perf_counter()
@@ -977,7 +997,6 @@ def phase_calib(frame0, warm_runs: int = 1, dev: str = "cuda") -> dict:
 
     from opencv_tpu_torch.core import imgproc
     from opencv_tpu_torch.geometry import calibration
-    from opencv_tpu_torch.ops import cuda as cuda_ops
     from opencv_tpu_torch.slam.vo import _np_rodrigues
 
     objs, img1, img2, fish, (R12, T12), poses = calib_views()
@@ -986,13 +1005,8 @@ def phase_calib(frame0, warm_runs: int = 1, dev: str = "cuda") -> dict:
     calib_pipeline(objs, img1, img2, fish, frame, dev)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    cuda_ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    for _ in range(warm_runs):
-        g = calib_pipeline(objs, img1, img2, fish, frame, dev)
-    torch.cuda.synchronize()
-    warm = (time.perf_counter() - t0) / warm_runs
-    counts = dict(cuda_ops.launch_counts)
+    outs, secs, runs = warm_runs_of(lambda: calib_pipeline(objs, img1, img2, fish, frame, dev), warm_runs)
+    g, counts, warm = outs[0], runs[0], statistics.median(secs)
     t0 = time.perf_counter()
     c = calib_pipeline(objs, img1, img2, fish, frame.cpu(), "cpu")
     cpu_s = time.perf_counter() - t0
@@ -1131,6 +1145,500 @@ def phase_lsh(frames, n_db: int = 64, dev: str = "cuda") -> dict:
     return res
 
 
+# ------------------------------------------------------------ tracking and lanes slice
+
+WARM_RUNS = 2  # warm runs of each path of this slice, after one cold run
+# hog's and dbt's cold run takes the scene's first 8 frames: they load every
+# kernel and cuDNN plan of the warm runs (all 28 scales; detector frames
+# and LK frames) at a fraction of a whole run's time
+COLD_FRAMES = 8
+METRICS_FROM = 5  # MotMetrics from this frame on, as examples/tbd_app.py
+
+
+def _sum_counts(*counts: dict) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def tbd_app_gt() -> list[np.ndarray]:
+    """examples/tbd_app.py's scene over 60 frames: [T, N, 4] boxes of its
+    three pedestrians (class 0) and two vehicles (class 1)."""
+    t = np.arange(60, dtype=np.float32)[:, None]
+    one = np.ones_like(t)
+    peds = np.stack([np.concatenate([20 + 3.0 * t, 40 + 0.5 * t, 14 * one, 30 * one], 1),
+                     np.concatenate([300 - 2.5 * t, 60 * one, 14 * one, 30 * one], 1),
+                     np.concatenate([40 + 2.0 * t, 120 * one, 14 * one, 30 * one], 1)], 1)
+    veh = np.stack([np.concatenate([10 + 6.0 * t, 200 * one, 40 * one, 24 * one], 1),
+                    np.concatenate([500 - 5.0 * t, 230 * one, 44 * one, 26 * one], 1)], 1)
+    return [peds.astype(np.float32), veh.astype(np.float32)]
+
+
+def crowd_gt() -> list[np.ndarray]:
+    """A MOT17-like crowd on a 480x640 frame over 120 frames: 32
+    pedestrians 18-28 x 44-64 px walking at 0.3-1.5 px/frame and 8
+    vehicles 48-72 x 28-40 px at 2-5 px/frame, each at constant velocity,
+    bouncing off the frame's edges. [T, N, 4] boxes per class."""
+    rng = np.random.default_rng(17)
+    h, w = 480, 640
+    out = []
+    for n, (w_lo, w_hi), (h_lo, h_hi), (s_lo, s_hi) in (
+            (32, (18, 28), (44, 64), (0.3, 1.5)), (8, (48, 72), (28, 40), (2.0, 5.0))):
+        size = np.stack([rng.uniform(w_lo, w_hi, n), rng.uniform(h_lo, h_hi, n)], 1)
+        pos = rng.uniform(0, 1, (n, 2)) * ([w, h] - size)
+        ang = rng.uniform(0, 2 * np.pi, n)
+        vel = rng.uniform(s_lo, s_hi, n)[:, None] * np.stack([np.cos(ang), 0.4 * np.sin(ang)], 1)
+        boxes = []
+        for _ in range(120):
+            boxes.append(np.concatenate([pos, size], 1))
+            pos = pos + vel
+            hi = [w, h] - size
+            vel = np.where((pos < 0) | (pos > hi), -vel, vel)
+            pos = np.clip(pos, 0, hi)
+        out.append(np.stack(boxes).astype(np.float32))
+    return out
+
+
+def tbd_run(gts: list[np.ndarray], history: str = "1", dev: str = "cuda") -> dict:
+    """examples/tbd_app.py's frame loop on ground-truth boxes `gts` (one
+    [T, N, 4] array per class, one Tracker each): detections are the boxes
+    jittered by 0.8 px with 15 % dropped; under a history distribution
+    such as "7,3" each step restores the track snapshot of 1 or 2 frames
+    back (the ISORC'20 stale-state experiment, tbd.cpp:173,645-704);
+    MotMetrics from frame METRICS_FROM. Returns the metrics, the
+    tracking-only seconds and each frame's confirmed (ids, boxes)."""
+    from opencv_tpu_torch.tbd import MotMetrics, TbdConfig, Tracker
+
+    rng = np.random.default_rng(0)
+    dist = np.array([float(v) for v in history.split(",")], np.float64)
+    dist /= dist.sum()
+    hlen = len(dist)
+    trackers = [Tracker(TbdConfig(), device=dev) for _ in gts]
+    metrics = [MotMetrics(device=dev) for _ in gts]
+    bufs = [[None] * hlen for _ in gts]
+    log, t_track = [], 0.0
+    for t in range(gts[0].shape[0]):
+        dets = []
+        for g in gts:
+            keep = rng.random(len(g[t])) > 0.15
+            dets.append(g[t][keep] + rng.normal(0, 0.8, (keep.sum(), 4)).astype(np.float32))
+        age = int(rng.choice(hlen, p=dist)) + 1
+        t0 = time.perf_counter()
+        confirmed = []
+        for c, trk in enumerate(trackers):
+            if hlen > 1:
+                snap = bufs[c][(t - age) % hlen] if t >= age else None
+                if snap is not None:
+                    trk.set_tracks(snap)
+                else:
+                    trk.reset()
+            confirmed.append(trk.step(dets[c]))
+            if hlen > 1:
+                bufs[c][t % hlen] = trk.get_tracks()
+        t_track += time.perf_counter() - t0
+        frame_log = []
+        for c, conf in enumerate(confirmed):
+            boxes = np.stack([tr.bbox for tr in conf]) if conf else np.zeros((0, 4), np.float32)
+            frame_log.append(([tr.track_id for tr in conf], boxes))
+            if t >= METRICS_FROM and conf:
+                metrics[c].update(boxes, gts[c][t])
+        log.append(frame_log)
+    return dict(metrics=metrics, t_track=t_track, frames=gts[0].shape[0], log=log)
+
+
+def _tbd_card_vs_cpu(card: dict, cpu: dict) -> float:
+    """Largest box difference (px) between two tbd_run logs; fails on
+    other confirmed track IDs or other MOT counters."""
+    worst = 0.0
+    for t, (fa, fb) in enumerate(zip(card["log"], cpu["log"])):
+        for c, ((ia, ba), (ib, bb)) in enumerate(zip(fa, fb)):
+            if ia != ib:
+                fail(f"tbd: frame {t} class {c}: confirmed IDs {ia} on the card, {ib} on the CPU")
+            if len(ba):
+                worst = max(worst, float(np.abs(ba - bb).max()))
+    for ma, mb in zip(card["metrics"], cpu["metrics"]):
+        if (ma.tp, ma.fp, ma.fn, ma.gt) != (mb.tp, mb.fp, mb.fn, mb.gt):
+            fail(f"tbd: MOT counters differ: card {(ma.tp, ma.fp, ma.fn, ma.gt)}, "
+                 f"CPU {(mb.tp, mb.fp, mb.fn, mb.gt)}")
+    return worst
+
+
+def phase_tbd(dev: str = "cuda") -> dict:
+    """The TBD app (examples/tbd_app.py) on ground-truth detections: its
+    scene under history distributions "1" and "7,3" (MOTA > 0.8 for both
+    classes, the app's own bound), then a crowd of 32 pedestrians and 8
+    vehicles over 120 frames; each cold, then warm WARM_RUNS times, then
+    on the CPU: the same confirmed IDs, equal MOT counters, boxes within
+    1e-3 px."""
+    import torch
+
+    scenes = {"app_history_1": (tbd_app_gt(), "1"), "app_history_7_3": (tbd_app_gt(), "7,3"),
+              "crowd_32_8": (crowd_gt(), "1")}
+    res, all_counts, frames = {}, [], 0
+    for name, (gts, history) in scenes.items():
+        t0 = time.perf_counter()
+        tbd_run(gts, history, dev=dev)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        outs, secs, runs = warm_runs_of(lambda: tbd_run(gts, history, dev=dev), WARM_RUNS)
+        all_counts.append(runs[0])
+        card = outs[0]
+        worst = _tbd_card_vs_cpu(card, tbd_run(gts, history, dev="cpu"))
+        n = card["frames"]
+        frames += n
+        m = card["metrics"]
+        track_fps = [o["frames"] / o["t_track"] for o in outs]
+        res[name] = dict(frames=n, history=history, mota=[x.mota for x in m], motp=[x.motp for x in m],
+                         counters=[dict(tp=x.tp, fp=x.fp, fn=x.fn, gt=x.gt) for x in m],
+                         tracking_fps=statistics.median(track_fps), tracking_fps_runs=track_fps,
+                         frame_fps=n / statistics.median(secs), cold_s=cold, card_vs_cpu_px=worst)
+        print(f"[tbd] {name}: {n} frames, {sum(g.shape[1] for g in gts)} objects in {len(gts)} classes, "
+              f"history '{history}': MOTA {', '.join(f'{x.mota:.4f}' for x in m)}, MOTP "
+              f"{', '.join(f'{x.motp:.4f}' for x in m)} (classes 0, 1); counters "
+              f"{res[name]['counters']}; tracking-only {res[name]['tracking_fps']:.1f} frames/s (median of "
+              f"{WARM_RUNS}, range {min(track_fps):.1f} to {max(track_fps):.1f}), whole loop "
+              f"{res[name]['frame_fps']:.1f} frames/s, cold {cold:.3f} s; card vs CPU: IDs and counters "
+              f"equal, boxes within {worst:.2e} px", flush=True)
+        if not worst <= 1e-3:
+            fail(f"tbd {name}: card boxes {worst} px from the CPU's (bound 1e-3)")
+        if name.startswith("app") and not min(x.mota for x in m) > 0.8:
+            fail(f"tbd {name}: MOTA {[x.mota for x in m]} (bound 0.8 for both classes)")
+    return dict(units=frames, unit="frame", scenes=res, launches=_sum_counts(*all_counts))
+
+
+def make_bar_window(rng, on: bool = True) -> np.ndarray:
+    """tests/test_hog.py's 64x128 training window: a bright vertical bar
+    (a crude pedestrian) on noise, or noise blobs."""
+    img = rng.uniform(0, 40, size=(128, 64)).astype(np.float32)
+    if on:
+        x = rng.integers(24, 40)
+        wbar = rng.integers(10, 16)
+        img[20:110, x - wbar // 2: x + wbar // 2] += rng.uniform(120, 200)
+    else:
+        for _ in range(6):
+            y, x = rng.integers(10, 110), rng.integers(5, 55)
+            img[y: y + 8, x: x + 8] += rng.uniform(60, 150)
+    return img
+
+
+@functools.lru_cache(maxsize=None)
+def fit_bar_svm(dev: str) -> tuple[np.ndarray, float]:
+    """tests/test_hog.py's linear "SVM": ridge regression (lambda 1e-2, in
+    f64 on the host) on the port's descriptors of 60 + 60 windows. Fitted
+    once per device: the hog path times the fit, later users share it."""
+    from opencv_tpu_torch.ops import hog
+
+    rng = np.random.default_rng(11)
+    X, y = [], []
+    for _ in range(60):
+        for on, label in ((True, 1.0), (False, -1.0)):
+            X.append(hog.compute_descriptor(make_bar_window(rng, on), device=dev).cpu().numpy())
+            y.append(label)
+    X, y = np.stack(X).astype(np.float64), np.asarray(y)
+    w = np.linalg.solve(X.T @ X + 1e-2 * np.eye(X.shape[1]), X.T @ y)
+    return w.astype(np.float32), float(-(X @ w).mean())
+
+
+def bar_scene(n_frames: int = 120):
+    """Six window-sized bar pedestrians on fresh noise each 480x640 frame,
+    in two rows of three: the top row walks right at 1.0 px/frame, the
+    bottom row left, both down at 0.1 px/frame; boxes stay a window apart.
+    Returns (frames f32 [T, H, W], boxes [T, 6, 4])."""
+    rng = np.random.default_rng(5)
+    starts = np.array([(40, 20), (232, 20), (424, 20), (160, 300), (352, 300), (544, 300)], np.float64)
+    vel = np.array([(1.0, 0.1)] * 3 + [(-1.0, 0.1)] * 3)
+    frames = rng.uniform(0, 40, size=(n_frames, 480, 640)).astype(np.float32)
+    boxes = np.zeros((n_frames, 6, 4), np.float32)
+    for t in range(n_frames):
+        for i, (x, y) in enumerate(starts + t * vel):
+            xi, yi = int(round(x)), int(round(y))
+            frames[t, yi + 20: yi + 110, xi + 26: xi + 38] += 160.0
+            boxes[t, i] = (x, y, 64, 128)
+    return frames, boxes
+
+
+def group_detections(boxes: np.ndarray, scores: np.ndarray) -> np.ndarray:
+    """The app's merge of overlapping hits: the reference's
+    detectMultiScale groups the windows of neighbouring positions and
+    scales (groupRectangles); here greedily, best score first, a box
+    overlapping a kept one by IoU > 0.3 is dropped."""
+    order = np.argsort(-scores, kind="stable")
+    kept = []
+    for i in order:
+        b = boxes[i]
+        ok = True
+        for k in kept:
+            x1, y1 = max(b[0], k[0]), max(b[1], k[1])
+            x2, y2 = min(b[0] + b[2], k[0] + k[2]), min(b[1] + b[3], k[1] + k[3])
+            inter = max(x2 - x1, 0) * max(y2 - y1, 0)
+            if inter / (b[2] * b[3] + k[2] * k[3] - inter) > 0.3:
+                ok = False
+                break
+        if ok:
+            kept.append(b)
+    return np.array(kept, np.float32).reshape(-1, 4)
+
+
+HOG_KW = dict(scale0=1.05, n_scales=64, hit_threshold=0.0)  # the reference cuda HOG's defaults
+
+
+def hog_detect(img, w, b):
+    """One frame's grouped HOG detections [D, 4] on the host."""
+    from opencv_tpu_torch.ops import hog
+
+    det = hog.detect_multi_scale(img, w, b, **HOG_KW)
+    valid = det.valid.cpu().numpy()
+    return group_detections(det.boxes.cpu().numpy()[valid], det.scores.cpu().numpy()[valid])
+
+
+def hog_app_run(frames_dev, gt: np.ndarray, w, b) -> dict:
+    """The TBD app in HOG mode: per frame detectMultiScale on the card,
+    the grouped hits to a Tracker, MotMetrics against the planted boxes
+    from frame METRICS_FROM. Returns the metrics, the detection seconds
+    (hogWorkFps's span, synchronised) and the seconds of the whole loop."""
+    import torch
+
+    from opencv_tpu_torch.tbd import MotMetrics, TbdConfig, Tracker
+
+    dev = frames_dev.device
+    trk, mot = Tracker(TbdConfig(), device=dev), MotMetrics(device=dev)
+    t_det, n_det = 0.0, 0
+    t_all = time.perf_counter()
+    for t in range(frames_dev.shape[0]):
+        t0 = time.perf_counter()
+        det = hog_detect(frames_dev[t], w, b)
+        torch.cuda.synchronize()
+        t_det += time.perf_counter() - t0
+        n_det += len(det)
+        conf = trk.step(det)
+        if t >= METRICS_FROM and conf:
+            mot.update(np.stack([tr.bbox for tr in conf]), gt[t])
+    return dict(metrics=mot, det_s=t_det, all_s=time.perf_counter() - t_all,
+                detections=n_det / frames_dev.shape[0])
+
+
+def phase_hog(dev: str = "cuda", n_frames: int = 120) -> dict:
+    """The TBD app in HOG mode on the bar scene at 480x640: the SVM fitted
+    on the port's descriptors, detectMultiScale at the reference's
+    defaults (28 scales fit 480x640), grouped hits, a Tracker, MOTA
+    against the planted boxes; HOG detection frames/s and frame frames/s;
+    cold on COLD_FRAMES frames, then warm WARM_RUNS times. Card against
+    CPU on 4 frames (the same boxes, scores within 1e-3)."""
+    import torch
+
+    from opencv_tpu_torch.ops import hog
+
+    t0 = time.perf_counter()
+    w_np, b = fit_bar_svm(dev)
+    fit_s = time.perf_counter() - t0
+    w = torch.from_numpy(w_np).to(dev)
+    frames, gt = bar_scene(n_frames)
+    frames_dev = torch.from_numpy(frames).to(dev)
+    t0 = time.perf_counter()
+    hog_app_run(frames_dev[:COLD_FRAMES], gt, w, b)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    outs, _, runs = warm_runs_of(lambda: hog_app_run(frames_dev, gt, w, b), WARM_RUNS)
+    run = outs[0]
+    m = run["metrics"]
+    det_fps = [n_frames / o["det_s"] for o in outs]
+    frame_fps = [n_frames / o["all_s"] for o in outs]
+    n_scales = sum(1 for si in range(HOG_KW["n_scales"])
+                   if int(480 / 1.05 ** si) >= 128 and int(640 / 1.05 ** si) >= 64)
+
+    # card against CPU: the same valid boxes, scores within 1e-3
+    worst = 0.0
+    w_cpu = w.cpu()
+    for t in range(4):
+        gd = hog.detect_multi_scale(frames_dev[t], w, b, **HOG_KW)
+        cd = hog.detect_multi_scale(frames_dev[t].cpu(), w_cpu, b, **HOG_KW)
+        gv, cv = gd.valid.cpu(), cd.valid
+        gb, cb = gd.boxes.cpu()[gv], cd.boxes[cv]
+        if gb.shape != cb.shape or not torch.equal(gb, cb):
+            fail(f"hog: frame {t}: the card's {gb.shape[0]} boxes differ from the CPU's {cb.shape[0]}")
+        worst = max(worst, float((gd.scores.cpu()[gv] - cd.scores[cv]).abs().max()))
+    if not worst <= 1e-3:
+        fail(f"hog: card scores {worst} from the CPU's (bound 1e-3)")
+
+    res = dict(units=n_frames, unit="frame", frames=n_frames, scales=n_scales, svm_fit_s=fit_s,
+               mota=m.mota, motp=m.motp, counters=dict(tp=m.tp, fp=m.fp, fn=m.fn, gt=m.gt),
+               detections_per_frame=run["detections"],
+               hog_detection_fps=statistics.median(det_fps), hog_detection_fps_runs=det_fps,
+               frame_fps=statistics.median(frame_fps), frame_fps_runs=frame_fps, cold_s=cold,
+               cold_frames=COLD_FRAMES,
+               card_vs_cpu_score=worst, launches=runs[0])
+    print(f"[hog] SVM fitted on 120 windows in {fit_s:.2f} s; {n_frames} frames 480x640, 6 bar pedestrians, "
+          f"detectMultiScale at scale 1.05 x {n_scales} scales, hit threshold 0: "
+          f"{run['detections']:.2f} grouped detections per frame; MOTA {m.mota:.4f}, MOTP {m.motp:.4f} "
+          f"(TP {m.tp}, FP {m.fp}, FN {m.fn}, GT {m.gt}); HOG detection "
+          f"{res['hog_detection_fps']:.2f} frames/s, frame {res['frame_fps']:.2f} frames/s (median of "
+          f"{WARM_RUNS}, ranges {min(det_fps):.2f}-{max(det_fps):.2f} and "
+          f"{min(frame_fps):.2f}-{max(frame_fps):.2f}), cold {cold:.3f} s on {COLD_FRAMES} frames; "
+          f"card vs CPU on 4 frames: "
+          f"boxes equal, scores within {worst:.2e}; launches {runs[0]}", flush=True)
+    return res
+
+
+def dbt_run(frames: np.ndarray, gt: np.ndarray, w, b, dev) -> dict:
+    """DetectionBasedTracker with the HOG detector every 4 frames and LK
+    between, MotMetrics against the planted boxes from frame
+    METRICS_FROM. Returns the metrics and each frame's confirmed (ids,
+    boxes)."""
+    import torch
+
+    from opencv_tpu_torch.tbd import DetectionBasedTracker, MotMetrics
+
+    mot = MotMetrics(device=dev)
+    dbt = DetectionBasedTracker(lambda img: hog_detect(torch.from_numpy(img).to(dev), w, b),
+                                detect_interval=4, device=dev)
+    log = []
+    for t in range(frames.shape[0]):
+        conf = dbt.process_frame(frames[t])
+        boxes = np.stack([tr.bbox for tr in conf]) if conf else np.zeros((0, 4), np.float32)
+        log.append(([tr.track_id for tr in conf], boxes))
+        if t >= METRICS_FROM and conf:
+            mot.update(boxes, gt[t])
+    return dict(metrics=mot, log=log)
+
+
+def phase_dbt(dev: str = "cuda", n_frames: int = 32) -> dict:
+    """DetectionBasedTracker on the first `n_frames` frames of the hog
+    path's scene at 480x640 with its detector (one GFTT and one LK call
+    per box and frame pair: 6 boxes x 3 K4 sites at N = 32), cold on
+    COLD_FRAMES frames, then warm WARM_RUNS times; K4 must launch. The
+    first 5 frames (two detector runs, four LK passes) against the CPU:
+    the same confirmed IDs, boxes within 0.05 px (the LK rule)."""
+    import torch
+
+    frames, gt = bar_scene(n_frames)
+    w_np, b = fit_bar_svm(dev)
+    w = torch.from_numpy(w_np).to(dev)
+    t0 = time.perf_counter()
+    dbt_run(frames[:COLD_FRAMES], gt, w, b, dev)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    outs, secs, runs = warm_runs_of(lambda: dbt_run(frames, gt, w, b, dev), WARM_RUNS)
+    if any(c["lk_sample"] <= 0 for c in runs):
+        fail("kernel lk_sample was not launched by the DetectionBasedTracker's LK")
+
+    cpu = dbt_run(frames[:5], gt, w.cpu(), b, "cpu")
+    worst = 0.0
+    for t, ((ia, ba), (ib, bb)) in enumerate(zip(outs[0]["log"], cpu["log"])):
+        if ia != ib:
+            fail(f"dbt: frame {t}: confirmed IDs {ia} on the card, {ib} on the CPU")
+        if len(ba):
+            worst = max(worst, float(np.abs(ba - bb).max()))
+    if not worst <= 0.05:
+        fail(f"dbt: card boxes {worst} px from the CPU's (bound 0.05)")
+
+    m, pairs, warm = outs[0]["metrics"], n_frames - 1, statistics.median(secs)
+    res = dict(units=pairs, unit="frame pair", frames=n_frames, fps_warm=n_frames / warm,
+               fps_warm_runs=[n_frames / s for s in secs], cold_s=cold, cold_frames=COLD_FRAMES,
+               mota=m.mota, motp=m.motp,
+               counters=dict(tp=m.tp, fp=m.fp, fn=m.fn, gt=m.gt), card_vs_cpu_px=worst,
+               k4_launches_per_pair=runs[0]["lk_sample"] / pairs, launches=runs[0])
+    print(f"[dbt] DetectionBasedTracker (HOG every 4 frames, LK between) on {n_frames} frames 480x640: "
+          f"warm {n_frames / warm:.2f} frames/s (median of {WARM_RUNS}, range {n_frames / max(secs):.2f} "
+          f"to {n_frames / min(secs):.2f}), cold {cold:.3f} s on {COLD_FRAMES} frames; MOTA {m.mota:.4f}, "
+          f"MOTP {m.motp:.4f} (TP {m.tp}, FP {m.fp}, FN {m.fn}, GT {m.gt}); K4 launches per frame pair "
+          f"{res['k4_launches_per_pair']:.2f}; card vs CPU on 5 frames: IDs equal, boxes within "
+          f"{worst:.2e} px; launches {runs[0]}", flush=True)
+    return res
+
+
+LANES = ((80, 230, 150, 120), (260, 230, 180, 120))  # lane_detection.py's, at 240x320
+LANE_SCALE = 2  # the lanes at twice the example's coordinates, on 480x640
+
+
+def lane_frame(rng) -> np.ndarray:
+    """examples/lane_detection.py's road on 480x640 at LANE_SCALE times
+    its coordinates: two converging lanes (2 px thick, 220) on uniform
+    noise 20-60."""
+    h, w = 480, 640
+    img = rng.uniform(20, 60, size=(h, w)).astype(np.float32)
+    for x0, y0, x1, y1 in LANES:
+        x0, y0, x1, y1 = (LANE_SCALE * v for v in (x0, y0, x1, y1))
+        n = int(max(abs(x1 - x0), abs(y1 - y0)) * 2 + 1)
+        t = np.linspace(0, 1, n)
+        xs = np.round(x0 + t * (x1 - x0)).astype(int)
+        ys = np.round(y0 + t * (y1 - y0)).astype(int)
+        for d in range(2):
+            img[np.clip(ys, 0, h - 1), np.clip(xs + d, 0, w - 1)] = 220.0
+    return img
+
+
+def lane_pipeline(img):
+    """Gaussian blur (5, 1.5), Canny (60, 120), Hough segments (threshold
+    30, min length 120, max gap 5, 16 lines): (edges, segments)."""
+    from opencv_tpu_torch.core import imgproc
+    from opencv_tpu_torch.ops import edges, hough
+
+    e = edges.canny(imgproc.gaussian_blur(img, 5, 1.5), 60, 120)
+    return e, hough.hough_segments(e, threshold=30.0, min_line_length=120, max_line_gap=5,
+                                   max_lines=16)
+
+
+def lanes_found(xyxy: np.ndarray) -> list[bool]:
+    """Per lane: are a segment's two ends within 48 px of its ends,
+    summed (lane_detection.py's bound of 2 x 12 px, at twice its scale)?"""
+    found = []
+    for x0, y0, x1, y1 in LANES:
+        p, q = LANE_SCALE * np.array([x0, y0], np.float64), LANE_SCALE * np.array([x1, y1], np.float64)
+        found.append(any(min(np.linalg.norm(s[:2] - p) + np.linalg.norm(s[2:] - q),
+                             np.linalg.norm(s[:2] - q) + np.linalg.norm(s[2:] - p)) < 48.0
+                         for s in xyxy))
+    return found
+
+
+def phase_lane(n_frames: int = 30, dev: str = "cuda") -> dict:
+    """Lane detection (examples/lane_detection.py) at 480x640 on
+    `n_frames` frames of fresh noise: both lanes found in every frame;
+    cold, then warm WARM_RUNS times; frame 0 on the CPU: equal edge
+    masks, segments within 0.5 px."""
+    import torch
+
+    rng = np.random.default_rng(3)
+    frames = torch.from_numpy(np.stack([lane_frame(rng) for _ in range(n_frames)])).to(dev)
+
+    def run():
+        out = []
+        for t in range(n_frames):
+            e, seg = lane_pipeline(frames[t])
+            out.append((int(e.sum()), seg.xyxy.cpu().numpy()[seg.valid.cpu().numpy()]))
+        return out
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    outs, secs, runs = warm_runs_of(run, WARM_RUNS)
+    found = [lanes_found(xyxy) for _, xyxy in outs[0]]
+    e_g, s_g = lane_pipeline(frames[0])
+    e_c, s_c = lane_pipeline(frames[0].cpu())
+    if not torch.equal(e_g.cpu(), e_c):
+        fail(f"lane: edge masks differ on {int((e_g.cpu() != e_c).sum())} pixels between the card "
+             "and the CPU")
+    if not torch.equal(s_g.valid.cpu(), s_c.valid):
+        fail("lane: valid segments differ between the card and the CPU")
+    seg_px = float((s_g.xyxy.cpu() - s_c.xyxy)[s_c.valid].abs().max()) if s_c.valid.any() else 0.0
+    warm = statistics.median(secs)
+    res = dict(units=n_frames, unit="frame", fps_warm=n_frames / warm,
+               fps_warm_runs=[n_frames / s for s in secs], cold_s=cold,
+               edge_px_mean=float(np.mean([n for n, _ in outs[0]])),
+               segments_mean=float(np.mean([len(x) for _, x in outs[0]])),
+               frames_both_lanes=sum(all(f) for f in found), card_vs_cpu_segment_px=seg_px,
+               launches=runs[0])
+    print(f"[lane] {n_frames} frames 480x640 (blur 5/1.5, Canny 60/120, Hough segments 30/120/5/16): "
+          f"both lanes found in {res['frames_both_lanes']} of {n_frames} frames; "
+          f"{res['edge_px_mean']:.0f} edge px and {res['segments_mean']:.1f} segments per frame; warm "
+          f"{n_frames / warm:.2f} frames/s (median of {WARM_RUNS}, range {n_frames / max(secs):.2f} to "
+          f"{n_frames / min(secs):.2f}), cold {cold:.3f} s; card vs CPU on frame 0: edge masks equal, "
+          f"segments within {seg_px:.2e} px; launches {runs[0]}", flush=True)
+    if res["frames_both_lanes"] != n_frames:
+        fail(f"lane: both lanes found in only {res['frames_both_lanes']} of {n_frames} frames")
+    if not seg_px <= 0.5:
+        fail(f"lane: card segments {seg_px} px from the CPU's (bound 0.5)")
+    return res
+
+
 def profile_report(tag: str, fn, units: int, unit: str) -> None:
     """torch.profiler around one call of `fn` (which does `units` units of
     work): the device's busy share of the call's wall time (the sum of
@@ -1201,6 +1709,24 @@ def phase_profile_geometry(frames, K) -> None:
                    lambda: calibration.calibrate_camera(objs, img1, device="cuda"), objs.shape[0], "view")
 
 
+def phase_profile_hog() -> None:
+    """Where the time goes in one warm HOG-mode frame of the TBD app
+    (detectMultiScale over 28 scales, grouping, one Tracker step)."""
+    import torch
+
+    from opencv_tpu_torch.tbd import TbdConfig, Tracker
+
+    w_np, b = fit_bar_svm("cuda")
+    w = torch.from_numpy(w_np).to("cuda")
+    frames, _ = bar_scene(8)
+    frames = torch.from_numpy(frames).to("cuda")
+    trk = Tracker(TbdConfig(), device="cuda")
+    for t in range(7):
+        trk.step(hog_detect(frames[t], w, b))
+    torch.cuda.synchronize()
+    profile_report("profile hog frame", lambda: trk.step(hog_detect(frames[7], w, b)), 1, "frame")
+
+
 def main():
     card, rates = phase_device()
     try:
@@ -1229,10 +1755,15 @@ def main():
              "vo_klt": timed("vo_klt", phase_klt, frames, centres, K),
              "twoview": timed("twoview", phase_two_view, frames, K),
              "calib": timed("calib", phase_calib, frames[0]),
-             "lsh": timed("lsh", phase_lsh, frames)}
-    timed("profile orb", phase_profile, frames, K, "orb")
+             "lsh": timed("lsh", phase_lsh, frames),
+             "tbd": timed("tbd", phase_tbd),
+             "hog": timed("hog", phase_hog),
+             "dbt": timed("dbt", phase_dbt),
+             "lane": timed("lane", phase_lane)}
+    timed("profile orb", phase_profile, frames, K, "orb", 40, 4)
     timed("profile klt", phase_profile, frames, K, "klt", 40, 4)
     timed("profile geometry", phase_profile_geometry, frames, K)
+    timed("profile hog", phase_profile_hog)
     kernels = []
     for key, row in rows.items():
         by_path = {p: res["launches"][key] for p, res in paths.items()}

@@ -1,10 +1,13 @@
 """Carrying state across from the JAX package.
 
-There are no learned weights: what carries across is configuration and
-the fixed BRIEF pattern (ops/orb.py draws it from the same seed). The
-tests build a nested dict with `dataclasses.asdict` on a JAX config and
-rebuild the port's config from it here, and feed both engines the same
-landmark map through `load_map`.
+What carries across is configuration, the fixed BRIEF pattern (ops/orb.py
+draws it from the same seed), a landmark map, a tracker's state and a
+HOG detector's linear SVM. The tests build a nested dict with
+`dataclasses.asdict` on a JAX config and rebuild the port's config from
+it here, feed both engines the same landmark map through `load_map`,
+both trackers the same snapshot through `tracker_snapshot`, and both
+detectors the same weights through `hog_detector`. Everything arrives as
+numpy or plain Python; nothing here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from opencv_tpu_torch.core.config import LKConfig, MatchConfig, ORBConfig
 from opencv_tpu_torch.device import resolve_device
 from opencv_tpu_torch.slam.vo import VOConfig
+from opencv_tpu_torch.tbd.tracker import Track
 
 _NESTED = {"orb": ORBConfig, "match": MatchConfig, "lk": LKConfig}
 
@@ -46,3 +50,26 @@ def load_map(lm_pos: np.ndarray, lm_desc: np.ndarray, lm_valid: np.ndarray, devi
         torch.as_tensor(desc.astype(np.int32, copy=False), device=dev),
         torch.as_tensor(np.asarray(lm_valid, bool), device=dev),
     )
+
+
+def tracker_snapshot(snapshot, device=None):
+    """A JAX `Tracker.get_tracks()` snapshot (its Tracks, `next_id`, and
+    the numpy filter state (x, P) or None) as the port's snapshot for
+    `Tracker.set_tracks`: Track records with copied f32 boxes, the filter
+    state on the device."""
+    tracks, next_id, kf = snapshot
+    dev = resolve_device(device)
+    ported = [Track(**{f.name: getattr(t, f.name) for f in dataclasses.fields(Track)})
+              for t in tracks]
+    for t in ported:
+        t.bbox = np.array(t.bbox, np.float32)
+    if kf is not None:
+        kf = tuple(torch.as_tensor(np.array(a, np.float32), device=dev) for a in kf)
+    return ported, int(next_id), kf
+
+
+def hog_detector(weights: np.ndarray, bias: float, device=None):
+    """A HOG linear SVM (numpy weights [descriptor_dim] and a bias) as the
+    port's (f32 weight tensor on the device, float bias)."""
+    w = torch.as_tensor(np.asarray(weights, np.float32).reshape(-1), device=resolve_device(device))
+    return w, float(bias)

@@ -73,6 +73,12 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torc
     return sep_filter2d(img, k, k)
 
 
+def box_filter(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Normalized ksize x ksize box filter (BORDER_REFLECT_101)."""
+    k = np.full((ksize,), 1.0 / ksize, np.float32)
+    return sep_filter2d(img, k, k)
+
+
 _SCAN_BLOCK = 16  # XLA's CPU rewrite of a long cumsum scans blocks of 16
 
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -15,3 +17,17 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """True f32 matmuls and convolutions inside the block, whatever the
+    caller's global switches say (the JAX code's exact f32 on the CPU and
+    Precision.HIGHEST); the switches are restored on exit."""
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev

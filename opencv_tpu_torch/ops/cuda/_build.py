@@ -1,11 +1,12 @@
-"""Build the CUDA sources of `csrc/` at first use and load them with ctypes.
+"""Build the native sources of `csrc/` at first use and load them with ctypes.
 
-Each `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into its own shared
-library with a plain C interface (no PyTorch headers: seconds, not
-minutes, per build) under `build/opencv_tpu_torch/` at the repository
-root. The file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. Nothing
-here runs at import time.
+Each `csrc/<name>.cu` is compiled by `nvcc` for sm_90a, and each host
+source `csrc/<name>.cpp` (the Munkres solver) by the host C++ compiler,
+into its own shared library with a plain C interface (no PyTorch
+headers: seconds, not minutes, per build) under `build/opencv_tpu_torch/`
+at the repository root. The file name carries a hash of the source and
+the flags, so an edited source is rebuilt and a stale library is never
+loaded. A failed build raises. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -24,11 +25,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 KERNEL_SOURCES = ("fast", "knn2_hamming", "lk_sample")
+HOST_SOURCES = ("munkres",)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-build_logs: dict[str, str] = {}  # nvcc's stderr per source (ptxas resource use)
+build_logs: dict[str, str] = {}  # compiler output per source (ptxas resource use)
 
 
 def nvcc_path() -> str:
@@ -42,29 +45,44 @@ def nvcc_path() -> str:
     return found
 
 
+def cxx_path() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("opencv_tpu_torch: g++ not found")
+    return found
+
+
+def _source(name: str) -> tuple[Path, tuple[str, ...]]:
+    """(source file, compiler flags) of `name`."""
+    if name in HOST_SOURCES:
+        return CSRC / f"{name}.cpp", CXX_FLAGS
+    return CSRC / f"{name}.cu", NVCC_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src, flags = _source(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names=KERNEL_SOURCES) -> dict[str, float]:
-    """Compile every source that has no up-to-date library, all nvcc
+def build(names=KERNEL_SOURCES + HOST_SOURCES) -> dict[str, float]:
+    """Compile every source that has no up-to-date library, all compiler
     processes started together. Returns seconds per source built."""
     import time
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
+        src, flags = _source(name)
+        compiler = cxx_path() if name in HOST_SOURCES else nvcc_path()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (
             subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                [compiler, *flags, "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             ),
             tmp, out,
@@ -75,16 +93,16 @@ def build(names=KERNEL_SOURCES) -> dict[str, float]:
         times[name] = time.perf_counter() - t0
         build_logs[name] = stdout + stderr
         if proc.returncode != 0:
-            errors.append(f"{name}.cu:\n{stdout}{stderr}")
+            errors.append(f"{_source(name)[0].name}:\n{stdout}{stderr}")
             continue
         os.replace(tmp, out)
     if errors:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        raise RuntimeError("build failed:\n" + "\n".join(errors))
     return times
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library of `csrc/<name>.cu` or `.cpp`, built first if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -7,28 +7,17 @@ dR/drvec from torch.func.jacfwd of the guarded Rodrigues formula (once
 per camera, not per observation); tests hold them against
 torch.func.jacfwd of the whole residual. Block sums are `index_add_`.
 All products run in f32 (the JAX package asks for HIGHEST precision;
-TF32 stays off: see `_no_tf32`).
+TF32 stays off: `device.no_tf32`).
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import torch
 
+from opencv_tpu_torch.device import no_tf32
 from opencv_tpu_torch.geometry.rotation import rodrigues, rodrigues_jacobian
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    """Full-f32 matmuls inside (the JAX code's Precision.HIGHEST)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 class BAProblem(NamedTuple):
@@ -253,7 +242,7 @@ def bundle_adjust(p: BAProblem, iters: int = 20, lambda0: float = 1e-4,
                   huber_delta: float | None = None, solver: str = "auto",
                   cg_iters: int = 60) -> tuple[BAProblem, torch.Tensor]:
     """Run `iters` LM steps. Returns (optimized problem, final cost)."""
-    with _no_tf32():
+    with no_tf32():
         dev = p.points.device
         state = BAStepState(
             problem=p, lam=torch.tensor(lambda0, dtype=torch.float32, device=dev),

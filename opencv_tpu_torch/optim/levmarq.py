@@ -11,27 +11,17 @@ Precision.HIGHEST).
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, NamedTuple
 
 import torch
+
+from opencv_tpu_torch.device import no_tf32
 
 
 class LMResult(NamedTuple):
     params: torch.Tensor
     cost: torch.Tensor  # final 0.5 * ||r||^2
     n_accepted: torch.Tensor
-
-
-@contextlib.contextmanager
-def full_f32_matmul():
-    """TF32 off for the products inside the block, restored after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def levmarq(
@@ -52,7 +42,7 @@ def levmarq(
     x = x0
     lam = torch.tensor(lambda0, dtype=x0.dtype, device=x0.device)
     n_acc = torch.zeros((), dtype=torch.int32, device=x0.device)
-    with full_f32_matmul():
+    with no_tf32():
         c = cost(x0)
         for _ in range(iters):
             r = residual_fn(x)

@@ -408,3 +408,168 @@ def test_knn_match_lsh_on_card_equals_cpu(card):
     for name in ("train_idx", "distance", "valid"):
         assert torch.equal(getattr(mc, name), getattr(mg, name).cpu()), name
     assert float(mc.valid.float().mean()) > 0.5
+
+
+# ------------------------------------------------ tracking and lane detection
+
+
+def _tbd_app_run(dev, n_frames=40):
+    """examples/tbd_app.py's scene under history "7,3" (each step restores
+    the snapshot of 1 or 2 frames back): per frame and class the confirmed
+    (ids, boxes), and the MOT counters."""
+    from opencv_tpu_torch.tbd import MotMetrics, Tracker
+
+    rng = np.random.default_rng(0)
+    trackers = [Tracker(device=dev), Tracker(device=dev)]
+    metrics = [MotMetrics(device=dev), MotMetrics(device=dev)]
+    bufs = [[None, None], [None, None]]
+    log = []
+    for t in range(n_frames):
+        gts = [np.array([[20 + 3.0 * t, 40 + 0.5 * t, 14, 30], [300 - 2.5 * t, 60, 14, 30],
+                         [40 + 2.0 * t, 120, 14, 30]], np.float32),
+               np.array([[10 + 6.0 * t, 200, 40, 24], [500 - 5.0 * t, 230, 44, 26]], np.float32)]
+        dets = []
+        for g in gts:
+            keep = rng.random(len(g)) > 0.15
+            dets.append(g[keep] + rng.normal(0, 0.8, (keep.sum(), 4)).astype(np.float32))
+        age = int(rng.choice(2, p=[0.7, 0.3])) + 1
+        for c in range(2):
+            if t >= age:
+                trackers[c].set_tracks(bufs[c][(t - age) % 2])
+            else:
+                trackers[c].reset()
+            conf = trackers[c].step(dets[c])
+            bufs[c][t % 2] = trackers[c].get_tracks()
+            boxes = np.stack([x.bbox for x in conf]) if conf else np.zeros((0, 4), np.float32)
+            log.append(([x.track_id for x in conf], boxes))
+            if t >= 5 and conf:
+                metrics[c].update(boxes, gts[c])
+    return log, [(m.tp, m.fp, m.fn, m.gt) for m in metrics]
+
+
+@pytest.mark.cuda
+def test_tracker_on_card_equals_cpu(card):
+    """The same confirmed IDs every frame, boxes within 1e-3 px, equal MOT
+    counters (chip_smoke's [tbd] bounds)."""
+    gpu_log, gpu_mot = _tbd_app_run(card)
+    cpu_log, cpu_mot = _tbd_app_run("cpu")
+    assert gpu_mot == cpu_mot
+    for (gi, gb), (ci, cb) in zip(gpu_log, cpu_log):
+        assert gi == ci
+        assert gb.shape == cb.shape and (gb.size == 0 or np.abs(gb - cb).max() <= 1e-3)
+
+
+def _bar_image(rng, h=480, w=640):
+    img = rng.uniform(0, 40, (h, w)).astype(np.float32)
+    for x, y in ((40, 20), (232, 20), (352, 300)):
+        img[y + 20: y + 110, x + 26: x + 38] += 160.0
+    return img
+
+
+@pytest.mark.cuda
+def test_hog_on_card_equals_cpu(card):
+    """Score maps within 1e-3 (atan2 and cuDNN's summation order differ
+    from the CPU's in the last ulps); detectMultiScale at the reference's
+    defaults: the same boxes, scores within 1e-3."""
+    from opencv_tpu_torch.ops import hog
+
+    rng = np.random.default_rng(21)
+    img = torch.from_numpy(_bar_image(rng))
+    w = torch.from_numpy(rng.normal(0, 0.05, 3780).astype(np.float32))
+    sc = hog.score_map(img, w, 0.1)
+    sg = hog.score_map(img.to(card), w.to(card), 0.1)
+    assert float((sg.cpu() - sc).abs().max()) <= 1e-3
+    dc = hog.detect_multi_scale(img, w, 0.0, n_scales=64)
+    dg = hog.detect_multi_scale(img.to(card), w.to(card), 0.0, n_scales=64)
+    assert torch.equal(dg.valid.cpu(), dc.valid)
+    assert torch.equal(dg.boxes.cpu()[dc.valid], dc.boxes[dc.valid])
+    assert float((dg.scores.cpu() - dc.scores)[dc.valid].abs().max()) <= 1e-3
+
+
+def _lane_image(rng, h=480, w=640):
+    img = rng.uniform(20, 60, (h, w)).astype(np.float32)
+    for x0, y0, x1, y1 in ((160, 460, 300, 240), (520, 460, 360, 240)):
+        t = np.linspace(0, 1, 2 * max(abs(x1 - x0), abs(y1 - y0)) + 1)
+        xs = np.round(x0 + t * (x1 - x0)).astype(int)
+        ys = np.round(y0 + t * (y1 - y0)).astype(int)
+        img[ys, xs] = img[ys, xs + 1] = 220.0
+    return img
+
+
+@pytest.mark.cuda
+def test_canny_and_hough_segments_on_card_equal_cpu(card):
+    """Canny masks and Hough accumulators equal (the transcendentals are
+    taken in f64), segments within 0.5 px (chip_smoke's [lane] bound)."""
+    from opencv_tpu_torch.core import imgproc
+    from opencv_tpu_torch.ops import edges, hough
+
+    rng = np.random.default_rng(22)
+    img = torch.from_numpy(_lane_image(rng))
+    for lo, hi in ((60, 120), (10, 30)):
+        ec = edges.canny(imgproc.gaussian_blur(img, 5, 1.5), lo, hi)
+        eg = edges.canny(imgproc.gaussian_blur(img.to(card), 5, 1.5), lo, hi)
+        assert torch.equal(eg.cpu(), ec)
+    assert torch.equal(hough.hough_lines_accumulator(eg)[0].cpu(), hough.hough_lines_accumulator(ec)[0])
+    kw = dict(threshold=30.0, min_line_length=120, max_line_gap=5, max_lines=16)
+    sc = hough.hough_segments(ec, **kw)
+    sg = hough.hough_segments(eg, **kw)
+    assert torch.equal(sg.valid.cpu(), sc.valid) and bool(sc.valid.any())
+    assert float((sg.xyxy.cpu() - sc.xyxy)[sc.valid].abs().max()) <= 0.5
+
+
+@pytest.mark.cuda
+def test_hough_circles_and_generalized_on_card_equal_cpu(card):
+    from opencv_tpu_torch.ops import hough
+
+    h, w = 128, 160
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.full((h, w), 30.0, np.float32)
+    for cx, cy, r in ((40, 40, 12), (110, 70, 18), (60, 100, 9)):
+        img[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 200.0
+    img = torch.from_numpy(img)
+    kw = dict(min_radius=6, max_radius=24, acc_threshold=12.0, min_dist=12, max_circles=8)
+    cc, cg = hough.hough_circles(img, **kw), hough.hough_circles(img.to(card), **kw)
+    for name in ("xyr", "votes", "valid"):
+        assert torch.equal(getattr(cg, name).cpu(), getattr(cc, name)), name
+    t = torch.full((40, 40), 20.0)
+    t[8:32, 8:14] = 220.0
+    t[26:32, 8:30] = 220.0
+    scene = torch.full((120, 150), 20.0)
+    scene[40:80, 60:100] = torch.rot90(t)
+    angles = (0.0, np.pi / 2, np.pi, 3 * np.pi / 2)
+    dc = hough.generalized_hough(scene, hough.build_r_table(t, n_bins=24, cap=48),
+                                 vote_threshold=40.0, max_detections=4, angles=angles)
+    dg = hough.generalized_hough(scene.to(card), hough.build_r_table(t.to(card), n_bins=24, cap=48),
+                                 vote_threshold=40.0, max_detections=4, angles=angles)
+    for name in ("xy", "votes", "angle", "scale", "valid"):
+        assert torch.equal(getattr(dg, name).cpu(), getattr(dc, name)), name
+
+
+@pytest.mark.cuda
+def test_detection_based_tracker_on_card_equals_cpu(card):
+    """A textured square through the detect-every-4th-frame tracker at
+    480x640 (level 0 goes through K4): boxes within 0.05 px (the LK rule)."""
+    from opencv_tpu_torch.tbd import DetectionBasedTracker
+
+    rng = np.random.default_rng(23)
+    tex = rng.uniform(100, 255, (40, 40)).astype(np.float32)
+
+    def frame(t):
+        img = np.full((480, 640), 60.0, np.float32)
+        x, y = 100 + 3 * t, 200 + 2 * t
+        img[y:y + 40, x:x + 40] = tex
+        return img
+
+    def detector(img):
+        ys, xs = np.where(np.asarray(img) > 90)
+        return np.array([[xs.min(), ys.min(), xs.max() - xs.min(), ys.max() - ys.min()]], np.float32)
+
+    dc = DetectionBasedTracker(detector, device="cpu")
+    dg = DetectionBasedTracker(detector, device=card)
+    cuda_ops.reset_launch_counts()
+    for t in range(8):
+        tc, tg = dc.process_frame(frame(t)), dg.process_frame(frame(t))
+        assert [x.track_id for x in tg] == [x.track_id for x in tc]
+        for a, b in zip(dc.tracker.tracks, dg.tracker.tracks):
+            assert np.abs(a.bbox - b.bbox).max() <= 0.05
+    assert cuda_ops.launch_counts["lk_sample"] > 0

@@ -30,27 +30,32 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 
 
 def test_every_slice_module_is_checked():
-    """The import checks below walk the whole package; the LK slice's
-    and the geometry slice's modules are among them."""
+    """The import checks below walk the whole package; the LK slice's,
+    the geometry slice's and the tracking-and-lanes slice's modules are
+    among them."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for mod in ("ops/lk.py", "ops/gftt.py", "ops/cuda/lk_sample.py", "core/pyramid.py",
                 "slam/vo.py", "geometry/five_point.py", "geometry/epnp.py", "geometry/ap3p.py",
                 "geometry/ippe.py", "geometry/affine2d.py", "geometry/calibration.py",
-                "optim/levmarq.py", "optim/minimize.py", "ops/lsh.py"):
+                "optim/levmarq.py", "optim/minimize.py", "ops/lsh.py", "ops/kalman.py",
+                "tbd/assignment.py", "tbd/tracker.py", "tbd/detection_based.py", "ops/hog.py",
+                "ops/edges.py", "ops/hough.py"):
         assert f"opencv_tpu_torch/{mod}" in names
 
 
 NUMPY_ENTRY_POINTS = ("calibrate_camera", "stereo_calibrate", "calibrate_fisheye",
-                      "init_undistort_rectify_map", "build_lsh_index", "verify_candidate", "solve_lp")
+                      "init_undistort_rectify_map", "build_lsh_index", "verify_candidate", "solve_lp",
+                      "Tracker", "DetectionBasedTracker", "detect_multi_scale")
 
 
 def _numpy_entry_points():
     """{name: call} of every entry point that takes numpy and makes
     tensors, each called with no device."""
     from opencv_tpu_torch.geometry import calibration
-    from opencv_tpu_torch.ops import lsh
+    from opencv_tpu_torch.ops import hog, lsh
     from opencv_tpu_torch.optim import minimize
     from opencv_tpu_torch.slam import loop_closure
+    from opencv_tpu_torch.tbd import DetectionBasedTracker, Tracker
 
     obj = np.zeros((2, 6, 3), np.float32)
     obj[:, :, 0] = np.arange(6) % 3
@@ -71,6 +76,11 @@ def _numpy_entry_points():
         "verify_candidate": lambda: loop_closure.verify_candidate(
             None, xy, desc, ok, np.zeros((4, 3), np.float32), desc, ok),
         "solve_lp": lambda: minimize.solve_lp([1.0], [[1.0]], [1.0]),
+        "Tracker": lambda: Tracker().step(np.zeros((1, 4), np.float32)),
+        "DetectionBasedTracker": lambda: DetectionBasedTracker(
+            lambda img: np.zeros((0, 4), np.float32)).process_frame(np.zeros((16, 16), np.float32)),
+        "detect_multi_scale": lambda: hog.detect_multi_scale(
+            np.zeros((128, 64), np.float32), np.zeros(3780, np.float32), 0.0),
     }
 
 
