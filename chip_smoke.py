@@ -13,14 +13,15 @@ Phases:
      Hamming at 2000 x 128000 with ties and ~10% invalid rows, K4 LK window
      sampling at its three sites on the 480x640 level (templates C=3 win
      21, patches C=1 win 48 at integer origins, polish C=1 win 21; N = 2000
-     and 512 (the LK path's) and 32 (DetectionBasedTracker's), with points
+     and 512 (the LK path's), 32 (DetectionBasedTracker's) and 200
+     (videostab's), with points
      on every border, outside, far outside and non-finite; each site timed
      beside grid_sample and its bound), K5
      edge-clamped windows (win 21, N = 512, interior points); all exact;
      device times by CUDA events (kernel, plain version, one PyTorch
      library call where one computes the same function) beside the bound,
      and the first designs' times as labelled constants (FIRST_DESIGN_MS);
-  4. the ten paths, each with the launch counts reset just before each
+  4. the twelve paths, each with the launch counts reset just before each
      warm run and read just after it:
      a. ORB VO: VisualOdometry.process_sequence on a seeded 480x640
         synthetic sequence at bench_config5's engine config
@@ -76,11 +77,29 @@ Phases:
         Canny, Hough segments): both lanes in every frame; cold then warm
         twice; frame 0 against the CPU (equal edges, segments within
         0.5 px);
+     k. calibapp: examples/calibration_app.py's flow (8 views of its 7x5
+        board rendered with warp_perspective at 480x640, seed 0;
+        find_chessboard_corners per view, calibrate_camera, per-view
+        reprojection error, the worst view dropped and recalibrated, the
+        app's verdict: RMS < 0.8 px, fx and fy within 3 %) and a 5x4
+        circles-grid view (find_circles_grid: connected components and
+        blobs); every board found, verdict OK, circles within 0.5 px of
+        their centres; cold then warm twice; the CPU's corners within
+        1e-3 px, its circles grid equal; connected components' sweeps and
+        host reads;
+     l. stab: videostab.stabilize on 60 frames 480x640 (frame 0 of the
+        scene moved by a random walk of N(0, 1.5) px steps; GFTT 200, LK
+        at 3 levels: K4 at level 0, affine RANSAC, smoothing radius 5);
+        cold then warm twice; jitter below 0.6 of the input's; the first
+        5 pairs' motions on the CPU within 0.05 px; find_transform_ecc
+        ("affine") on 3 pairs against their RANSAC motion, Wiener
+        deblurring of one frame, wobble suppression of the motions;
   5. profile: torch.profiler over frames 40-44 of steady tracking of the
      ORB engine and of the klt engine, one two-view
-     pair, one calibrate_camera of 20 views and one warm HOG-mode frame
-     (detect and track) (device busy share, kernels per unit, top
-     kernels, top host operations).
+     pair, one calibrate_camera of 20 views, one warm HOG-mode frame
+     (detect and track), one warm calibration-app run and stabilize over
+     8 frames (device busy share, kernels per unit, top kernels, top host
+     operations).
 Prints a JSON line of path results (each with its unit and unit count),
 a JSON line of kernels, the card line, and last {"ok": true, "device":
 {...}}. Exits non-zero on any failure, and without a card.
@@ -117,8 +136,9 @@ POPC_PER_CLK_PER_SM = 16  # 32-bit __popc
 FIRST_DESIGN_MS = {"fast_corners": 0.1119, "fast_score": 0.0179, "lk_sample": 0.0601,
                    "lk_sample_n512": 0.0232, "lk_sample_clamp": 0.0044}
 
-# K4's point counts: the LK path's 2000 and 512, DetectionBasedTracker's 32
-K4_N = (2000, 512, 32)
+# K4's point counts: the LK path's 2000 and 512, DetectionBasedTracker's 32,
+# videostab's 200 (GFTT's max_corners)
+K4_N = (2000, 512, 32, 200)
 
 
 def fail(msg: str) -> None:
@@ -1639,6 +1659,288 @@ def phase_lane(n_frames: int = 30, dev: str = "cuda") -> dict:
     return res
 
 
+# ------------------------------------------------------------ calibration app and video stabilization slice
+
+APP_COLS, APP_ROWS, APP_SQ = 7, 5, 40  # examples/calibration_app.py's board (inner corners, px)
+APP_SQUARE_WORLD = 0.1
+APP_K = np.array([[520.0, 0, 326.0], [0, 525.2, 236.0], [0, 0, 1]])  # the app's K_GT
+CIRCLES_STEP, CIRCLES_R = 110, 27  # a 5x4 grid of dark disks filling 480x640
+
+
+def calibapp_views(n_views: int = 8, seed: int = 0, dev: str = "cuda"):
+    """examples/calibration_app.py's views: its 7x5 board (40 px squares,
+    0.1 m) rendered with warp_perspective through the app's K_GT at its
+    seeded poses (roll, pitch, yaw up to +-0.35 rad, 2.1-2.9 m), 480x640;
+    and one circles-grid view: tests/test_msseg_circles.py's `_grid_image`
+    drawing (dark disks of 30 on 220) for a 5x4 grid at step 110 px and
+    radius 27, centred in 480x640. Returns (board views on the
+    device, board object points [35, 3], circles view, true centres)."""
+    import torch
+
+    from opencv_tpu_torch.core import imgproc
+    from opencv_tpu_torch.geometry.rotation import rodrigues
+
+    bw, bh = (APP_COLS + 1) * APP_SQ, (APP_ROWS + 1) * APP_SQ
+    board = np.full((bh + 2 * APP_SQ, bw + 2 * APP_SQ), 210.0, np.float32)
+    for i in range(APP_ROWS + 1):
+        for j in range(APP_COLS + 1):
+            if (i + j) % 2 == 0:
+                board[APP_SQ * (i + 1):APP_SQ * (i + 2), APP_SQ * (j + 1):APP_SQ * (j + 2)] = 30.0
+    board_t = torch.from_numpy(board).to(dev)
+    s = APP_SQUARE_WORLD / APP_SQ
+    to_world = np.array([[s, 0, -(bw / 2 + APP_SQ) * s], [0, s, -(bh / 2 + APP_SQ) * s], [0, 0, 1]])
+    rng = np.random.default_rng(seed)
+    views = []
+    for _ in range(n_views):
+        rvec = rng.uniform(-0.35, 0.35, 3).astype(np.float32)
+        tvec = np.array([rng.uniform(-0.2, 0.2), rng.uniform(-0.15, 0.15), rng.uniform(2.1, 2.9)])
+        R = rodrigues(torch.from_numpy(rvec)).numpy().astype(np.float64)
+        hom = APP_K @ np.column_stack([R[:, 0], R[:, 1], tvec]) @ to_world
+        img = imgproc.warp_perspective(board_t, np.linalg.inv(hom).astype(np.float32), 480, 640)
+        views.append(img.clamp(0.0, 255.0))
+    obj = np.zeros((APP_ROWS * APP_COLS, 3), np.float32)
+    jj, ii = np.meshgrid(np.arange(APP_COLS), np.arange(APP_ROWS))
+    obj[:, 0] = jj.reshape(-1) * APP_SQUARE_WORLD
+    obj[:, 1] = ii.reshape(-1) * APP_SQUARE_WORLD
+
+    h, w = 480, 640
+    x0, y0 = (w - 4 * CIRCLES_STEP) // 2, (h - 3 * CIRCLES_STEP) // 2
+    yy, xx = np.mgrid[0:h, 0:w]
+    circles = np.full((h, w), 220.0, np.float32)
+    centres = []
+    for i in range(4):
+        for j in range(5):
+            cx, cy = x0 + j * CIRCLES_STEP, y0 + i * CIRCLES_STEP
+            circles[(yy - cy) ** 2 + (xx - cx) ** 2 <= CIRCLES_R ** 2] = 30.0
+            centres.append((cx, cy))
+    return views, obj, torch.from_numpy(circles).to(dev), np.asarray(centres, np.float32)
+
+
+def calibapp_run(views, obj, circles, dev: str = "cuda") -> dict:
+    """The calibration app's flow: find_chessboard_corners on each view,
+    calibrate_camera over the views found, each view's mean reprojection
+    error, drop the worst view and recalibrate, the app's verdict (RMS <
+    0.8 px, fx and fy within 3 %); then find_circles_grid on the circles
+    view. Per-view detection seconds and the calibrations' wall seconds by
+    the host clock around synchronised work."""
+    import torch
+
+    from opencv_tpu_torch.geometry import calibration
+    from opencv_tpu_torch.ops import chessboard
+
+    found, det_s = [], []
+    for img in views:
+        t0 = time.perf_counter()
+        c = chessboard.find_chessboard_corners(img, (APP_COLS, APP_ROWS), device=dev)
+        det_s.append(time.perf_counter() - t0)
+        found.append(c)
+    pts = [c for c in found if c is not None]
+    if len(pts) < 4:
+        return dict(found=found, det_s=det_s, ok=False)
+
+    def calib(p):
+        return calibration.calibrate_camera(np.stack([obj] * len(p)), np.stack(p), device=dev)
+
+    t0 = time.perf_counter()
+    res = calib(pts)
+    o = torch.from_numpy(obj).to(dev)
+    k4 = torch.tensor([res.K[0, 0], res.K[1, 1], res.K[0, 2], res.K[1, 2]], device=dev)
+    uv = calibration.project_points_full(torch.from_numpy(res.rvecs).to(dev),
+                                         torch.from_numpy(res.tvecs).to(dev), k4,
+                                         torch.from_numpy(res.dist).to(dev), o).cpu().numpy()
+    per_view = [float(np.linalg.norm(uv[v] - p, axis=1).mean()) for v, p in enumerate(pts)]
+    worst = int(np.argmax(per_view))
+    res2 = calib([p for i, p in enumerate(pts) if i != worst])
+    calib_s = time.perf_counter() - t0
+    best = res2 if res2.rms < res.rms else res
+    ok = bool(best.rms < 0.8 and abs(best.K[0, 0] - APP_K[0, 0]) < 0.03 * APP_K[0, 0]
+              and abs(best.K[1, 1] - APP_K[1, 1]) < 0.03 * APP_K[1, 1])
+    t0 = time.perf_counter()
+    grid, grid_ok = chessboard.find_circles_grid(circles, (5, 4), device=dev)
+    circles_s = time.perf_counter() - t0
+    return dict(found=found, det_s=det_s, res=res, res2=res2, per_view=per_view, worst=worst,
+                calib_s=calib_s, ok=ok, grid=grid, grid_ok=grid_ok, circles_s=circles_s)
+
+
+def phase_calibapp(dev: str = "cuda") -> dict:
+    """examples/calibration_app.py's flow at its own sizes (8 views of
+    480x640, a 7x5 board, seed 0) plus one 5x4 circles-grid view; cold,
+    then warm WARM_RUNS times. Every view's board must be found, the app's
+    verdict OK; the circles grid found within 0.5 px of its centres; the
+    CPU's corners within 1e-3 px of the card's, its circles grid equal."""
+    import torch
+
+    from opencv_tpu_torch.ops import ccomp, chessboard
+    from opencv_tpu_torch.ops.chessboard import median
+
+    views, obj, circles, centres = calibapp_views(dev=dev)
+    n_units = len(views) + 1
+    t0 = time.perf_counter()
+    calibapp_run(views, obj, circles, dev)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    outs, secs, runs = warm_runs_of(lambda: calibapp_run(views, obj, circles, dev), WARM_RUNS)
+    g = outs[0]
+    n_found = sum(c is not None for c in g["found"])
+    if n_found != len(views):
+        fail(f"calibapp: the board was found in {n_found} of {len(views)} views")
+    if not g["ok"]:
+        fail(f"calibapp: the app's verdict is DEGRADED (RMS {g['res2'].rms:.4f} px, K {g['res2'].K.tolist()})")
+    worst_px = 0.0
+    for img, c in zip(views, g["found"]):
+        cpu = chessboard.find_chessboard_corners(img.cpu(), (APP_COLS, APP_ROWS), device="cpu")
+        if cpu is None:
+            fail("calibapp: the CPU found no board where the card found one")
+        worst_px = max(worst_px, float(np.abs(c - cpu).max()))
+    if not worst_px <= 1e-3:
+        fail(f"calibapp: the card's corners are {worst_px} px from the CPU's (bound 1e-3)")
+    grid_err = float(np.linalg.norm(g["grid"][:, None] - centres[None], axis=-1).min(1).max())
+    if not (g["grid_ok"] and grid_err <= 0.5):
+        fail(f"calibapp: circles grid ok={g['grid_ok']}, {grid_err} px from the centres (bound 0.5)")
+    cpu_grid, cpu_ok = chessboard.find_circles_grid(circles.cpu(), (5, 4), device="cpu")
+    if not (cpu_ok and np.array_equal(cpu_grid, g["grid"])):
+        fail("calibapp: the CPU's circles grid differs from the card's")
+    lab = ccomp.connected_components_stats(circles < median(circles))
+    r1, r2 = g["res"], g["res2"]
+    det = [float(np.mean(o["det_s"])) for o in outs]
+    res = dict(units=n_units, unit="view", views=len(views), found=n_found,
+               fps_warm=n_units / statistics.median(secs),
+               fps_warm_runs=[n_units / t for t in secs], cold_s=cold,
+               rms=r1.rms, rms_after_drop=r2.rms, dropped_view=g["worst"],
+               per_view_err_px=g["per_view"], K=r1.K.tolist(), K_after_drop=r2.K.tolist(), ok=g["ok"],
+               detect_s_per_view=statistics.median(det), detect_s_per_view_runs=det,
+               calib_s=statistics.median(o["calib_s"] for o in outs),
+               circles_s=statistics.median(o["circles_s"] for o in outs), circles_err_px=grid_err,
+               ccomp_sweeps=lab.sweeps, ccomp_host_reads=lab.host_reads,
+               card_vs_cpu_corners_px=worst_px, launches=runs[0])
+    print(f"[calibapp] {n_found} of {len(views)} views 480x640: board found; RMS {r1.rms:.4f} px, fx "
+          f"{r1.K[0, 0]:.2f} (truth {APP_K[0, 0]:.1f}) fy {r1.K[1, 1]:.2f} (truth {APP_K[1, 1]:.1f}) cx "
+          f"{r1.K[0, 2]:.2f} cy {r1.K[1, 2]:.2f}; per-view error {np.round(g['per_view'], 4).tolist()} "
+          f"-> view {g['worst']} dropped, RMS {r2.rms:.4f} px, fx {r2.K[0, 0]:.2f} fy {r2.K[1, 1]:.2f}; "
+          f"verdict {'OK' if g['ok'] else 'DEGRADED'}", flush=True)
+    print(f"[calibapp] circles 5x4: found, {grid_err:.2e} px from the centres; connected components "
+          f"{lab.sweeps} sweeps, {lab.host_reads} host reads; detection {1e3 * res['detect_s_per_view']:.1f} "
+          f"ms per board view (median of {WARM_RUNS} runs, runs {[round(1e3 * d, 1) for d in det]}), "
+          f"circles view {1e3 * res['circles_s']:.1f} ms, both calibrations {res['calib_s']:.3f} s; "
+          f"{res['fps_warm']:.2f} views/s, cold {cold:.3f} s; card vs CPU: corners within "
+          f"{worst_px:.2e} px, circles grid equal; launches {runs[0]}", flush=True)
+    return res
+
+
+def stab_frames(base: np.ndarray, n_frames: int = 60, seed: int = 0, dev: str = "cuda"):
+    """tests/test_photo_videostab.py's jittered sequence at 480x640: `base`
+    moved by a random walk of N(0, 1.5) px steps with warp_affine
+    (edge-clamped). Returns frames [F, H, W] on the device."""
+    import torch
+
+    from opencv_tpu_torch.core import imgproc
+
+    rng = np.random.default_rng(seed)
+    jitter = np.cumsum(rng.normal(0, 1.5, size=(n_frames, 2)), axis=0).astype(np.float32)
+    b = torch.from_numpy(np.ascontiguousarray(base)).to(dev)
+    h, w = base.shape
+    return torch.stack([imgproc.warp_affine(b, [[1.0, 0.0, jx], [0.0, 1.0, jy]], h, w)
+                        for jx, jy in jitter])
+
+
+def frame_jitter(seq) -> float:
+    """tests/test_photo_videostab.py's measure: the mean absolute
+    difference of consecutive frames, 20 px inside."""
+    return float(np.mean([np.abs(a[20:-20, 20:-20] - b[20:-20, 20:-20]).mean()
+                          for a, b in zip(seq[:-1], seq[1:])]))
+
+
+def corners_px(a, b, h: int = 480, w: int = 640) -> float:
+    """Largest distance between two affine maps [2, 3] at a frame's corners."""
+    c = np.array([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1], [w - 1, h - 1, 1]], np.float64)
+    return float(np.abs(c @ np.asarray(a, np.float64).T - c @ np.asarray(b, np.float64).T).max())
+
+
+def phase_stab(base: np.ndarray, n_frames: int = 60, dev: str = "cuda") -> dict:
+    """Video stabilization: stabilize (GFTT 200, LK at 3 levels, affine
+    RANSAC per pair, Gaussian smoothing radius 5, compensating warps) on
+    `n_frames` jittered 480x640 frames, cold, then warm WARM_RUNS times;
+    the jitter must fall below 0.6 of the input's; K4 must launch. Then
+    find_transform_ecc("affine") on 3 pairs against their RANSAC motion,
+    deblur_weiner_gaussian on one frame, suppress_wobble on the motions;
+    the first 5 pairs' motions on the CPU within 0.05 px of the card's
+    (the same seed draws the same RANSAC subsets on both)."""
+    import torch
+
+    from opencv_tpu_torch.ops import ecc, videostab
+
+    frames = stab_frames(base, n_frames, dev=dev)
+    t0 = time.perf_counter()
+    videostab.stabilize(frames, device=dev)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    outs, secs, runs = warm_runs_of(lambda: videostab.stabilize(frames, device=dev), WARM_RUNS)
+    if any(c["lk_sample"] <= 0 for c in runs):
+        fail("kernel lk_sample was not launched by videostab's LK")
+    raw = frames.cpu().numpy()
+    ratio = frame_jitter(outs[0].cpu().numpy()) / frame_jitter(raw)
+
+    motions = videostab.estimate_motions(frames, device=dev)
+    cpu = videostab.estimate_motions(frames[:6].cpu(), device="cpu")
+    card_vs_cpu = max(corners_px(a, b) for a, b in zip(motions[1:6], cpu[1:6]))
+    ecc_rho, ecc_px, ecc_s = [], [], []
+    for i in (1, n_frames // 2, n_frames - 1):
+        t0 = time.perf_counter()
+        warp, rho = ecc.find_transform_ecc(frames[i - 1], frames[i], "affine", device=dev)
+        ecc_rho.append(float(rho))
+        ecc_s.append(time.perf_counter() - t0)
+        ecc_px.append(corners_px(warp.cpu().numpy(), motions[i]))
+    deblur_s = []  # the first call includes cuFFT's plans
+    for _ in range(2):
+        t0 = time.perf_counter()
+        deblurred = videostab.deblur_weiner_gaussian(frames[0], 5.0, device=dev)
+        deblur_ok = bool(torch.isfinite(deblurred).all())
+        deblur_s.append(time.perf_counter() - t0)
+    wobble = videostab.suppress_wobble(motions, device=dev)
+    pairs = n_frames - 1
+    warm = statistics.median(secs)
+    res = dict(units=n_frames, unit="frame", frames=n_frames, fps_warm=n_frames / warm,
+               fps_warm_runs=[n_frames / t for t in secs], cold_s=cold, jitter_ratio=ratio,
+               card_vs_cpu_motion_px=card_vs_cpu, ecc_rho=ecc_rho, ecc_vs_ransac_px=ecc_px,
+               ecc_s=ecc_s, deblur_s=deblur_s,
+               wobble_change_px=float(np.abs(wobble - motions)[:, :, 2].max()),
+               k4_launches_per_pair=runs[0]["lk_sample"] / pairs, launches=runs[0])
+    print(f"[stab] stabilize {n_frames} frames 480x640: warm {n_frames / warm:.2f} frames/s (median of "
+          f"{WARM_RUNS}, range {n_frames / max(secs):.2f} to {n_frames / min(secs):.2f}), cold {cold:.3f} s; "
+          f"jitter ratio {ratio:.4f} (stabilised over raw); K4 launches per frame pair "
+          f"{res['k4_launches_per_pair']:.2f}; card vs CPU motions on 5 pairs within {card_vs_cpu:.2e} px",
+          flush=True)
+    print(f"[stab] ECC affine on pairs (0,1), ({n_frames // 2 - 1},{n_frames // 2}), ({n_frames - 2},"
+          f"{n_frames - 1}): correlation {[round(r, 5) for r in ecc_rho]}, warp vs RANSAC motion "
+          f"{[round(p, 4) for p in ecc_px]} px, {[round(t, 3) for t in ecc_s]} s; Wiener deblur "
+          f"{1e3 * deblur_s[1]:.1f} ms (first call {1e3 * deblur_s[0]:.1f} ms; finite: {deblur_ok}); wobble suppression moves the translations "
+          f"by up to {res['wobble_change_px']:.4f} px; launches {runs[0]}", flush=True)
+    if not ratio < 0.6:
+        fail(f"stab: jitter ratio {ratio:.4f} (bound 0.6)")
+    if not card_vs_cpu <= 0.05:
+        fail(f"stab: card motions {card_vs_cpu} px from the CPU's (bound 0.05)")
+    if not (deblur_ok and np.isfinite(wobble).all() and np.isfinite(ecc_rho).all()):
+        fail("stab: a non-finite deblurred frame, wobble-suppressed motion or ECC correlation")
+    return res
+
+
+def phase_profile_slice6(base: np.ndarray) -> None:
+    """Where the time goes in one warm run of the calibration app (8 board
+    views, two calibrations, the circles view) and in stabilize over 8
+    frames."""
+    import torch
+
+    from opencv_tpu_torch.ops import videostab
+
+    views, obj, circles, _ = calibapp_views()
+    calibapp_run(views, obj, circles)
+    profile_report("profile calibapp", lambda: calibapp_run(views, obj, circles), len(views) + 1, "view")
+    frames = stab_frames(base, 8)
+    videostab.stabilize(frames)
+    torch.cuda.synchronize()
+    profile_report("profile stab", lambda: videostab.stabilize(frames), 8, "frame")
+
+
 def profile_report(tag: str, fn, units: int, unit: str) -> None:
     """torch.profiler around one call of `fn` (which does `units` units of
     work): the device's busy share of the call's wall time (the sum of
@@ -1759,11 +2061,14 @@ def main():
              "tbd": timed("tbd", phase_tbd),
              "hog": timed("hog", phase_hog),
              "dbt": timed("dbt", phase_dbt),
-             "lane": timed("lane", phase_lane)}
+             "lane": timed("lane", phase_lane),
+             "calibapp": timed("calibapp", phase_calibapp),
+             "stab": timed("stab", phase_stab, frames[0])}
     timed("profile orb", phase_profile, frames, K, "orb", 40, 4)
     timed("profile klt", phase_profile, frames, K, "klt", 40, 4)
     timed("profile geometry", phase_profile_geometry, frames, K)
     timed("profile hog", phase_profile_hog)
+    timed("profile calibapp and stab", phase_profile_slice6, frames[0])
     kernels = []
     for key, row in rows.items():
         by_path = {p: res["launches"][key] for p, res in paths.items()}

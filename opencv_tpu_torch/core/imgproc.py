@@ -1,5 +1,5 @@
-"""Image-processing primitives: the main-path subset of
-opencv_tpu/core/imgproc.py, in PyTorch on f32 [..., H, W] tensors.
+"""Image-processing primitives of opencv_tpu/core/imgproc.py in PyTorch,
+on f32 [..., H, W] tensors.
 
 The arithmetic follows the JAX functions operation for operation (tap
 order of the separable filter, the two-tap form of the bilinear resize,
@@ -11,9 +11,31 @@ Border convention: OpenCV's BORDER_REFLECT_101 == torch `mode="reflect"`.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+_GRAY = (0.299, 0.587, 0.114)  # Rec.601, cv::cvtColor COLOR_RGB2GRAY
+
+
+def to_gray(img) -> torch.Tensor:
+    """RGB [..., H, W, 3] (or gray [H, W]) -> gray f32 [..., H, W].
+
+    XLA's CPU dot is an FMA chain: r*w0, then fma(g, w1, .), then
+    fma(b, w2, .). Here the products are exact in f64 and each sum is
+    rounded to f32, which gives the same bits on either device."""
+    img = torch.as_tensor(img).to(torch.float32)
+    if img.ndim == 2:
+        return img
+    w = [float(np.float32(v)) for v in _GRAY]
+    x = img.double()
+    acc = (x[..., 0] * w[0]).to(torch.float32)
+    for c in (1, 2):
+        acc = (x[..., c] * w[c] + acc.double()).to(torch.float32)
+    return acc
 
 
 def shift2d(img: torch.Tensor, dy: int, dx: int, fill: float = 0.0) -> torch.Tensor:
@@ -103,22 +125,69 @@ def _block_scan(x: torch.Tensor) -> torch.Tensor:
     return (inner + offset[..., None]).reshape(x.shape[:-1] + (nb * _SCAN_BLOCK,))[..., :n]
 
 
-def box_sum_integral(img: torch.Tensor, ksize: int, xla_order: bool = False) -> torch.Tensor:
+def box_sum_integral(img: torch.Tensor, ksize: int) -> torch.Tensor:
     """(2r+1)^2 un-normalized box sum via two prefix sums; zero outside.
-    `xla_order` sums in eager JAX's order (bit-equal to the JAX function;
-    about 40 small launches per axis where torch.cumsum takes one)."""
+    The prefix sums run in eager JAX's order (`_block_scan`: bit-equal to
+    the JAX function; about 40 small launches per axis where one
+    torch.cumsum would do, and in another order)."""
     r = ksize // 2
     h, w = img.shape[-2:]
-    x = F.pad(img.to(torch.float32), (r + 1, r, r + 1, r))
-    if xla_order:
-        ii = _block_scan(_block_scan(x).transpose(-1, -2)).transpose(-1, -2)
-    else:
-        ii = torch.cumsum(torch.cumsum(x, dim=-1), dim=-2)
+    ii = integral(F.pad(img.to(torch.float32), (r, r, r, r)))
     a = ii[..., :h, :w]
     b = ii[..., :h, ksize:]
     c = ii[..., ksize:, :w]
     d = ii[..., ksize:, ksize:]
     return d - b - c + a
+
+
+def integral(img: torch.Tensor) -> torch.Tensor:
+    """cv::integral analog: [..., H+1, W+1] with a zero first row and
+    column; the prefix sums in eager JAX's order (bit-equal)."""
+    x = F.pad(img.to(torch.float32), (1, 0, 1, 0))
+    return _block_scan(_block_scan(x).transpose(-1, -2)).transpose(-1, -2)
+
+
+def threshold(img: torch.Tensor, thresh: float, maxval: float = 255.0,
+              kind: str = "binary") -> torch.Tensor:
+    """cv::threshold analog. kinds: binary, binary_inv, trunc, tozero,
+    tozero_inv."""
+    img = img.to(torch.float32)
+    above = img > thresh
+    zero = torch.zeros_like(img)
+    full = torch.full_like(img, maxval)
+    if kind == "binary":
+        return torch.where(above, full, zero)
+    if kind == "binary_inv":
+        return torch.where(above, zero, full)
+    if kind == "trunc":
+        return torch.where(above, torch.full_like(img, thresh), img)
+    if kind == "tozero":
+        return torch.where(above, img, zero)
+    if kind == "tozero_inv":
+        return torch.where(above, zero, img)
+    raise ValueError(f"unknown threshold kind {kind}")
+
+
+def otsu_threshold(img: torch.Tensor, bins: int = 256) -> torch.Tensor:
+    """Otsu's threshold value (THRESH_OTSU analog) for u8-range images, a
+    0-d f32 tensor: the split that maximizes the between-class variance
+    (the first of tied maxima). The histogram counts are exact integers,
+    and its prefix sums run in eager JAX's order: at 480x640 the level
+    sum passes 2^24, where the order decides the bits."""
+    idx = img.to(torch.int32).clamp(0, bins - 1).reshape(-1).to(torch.int64)
+    hist = torch.bincount(idx, minlength=bins).to(torch.float32)
+    total = hist.sum()
+    levels = torch.arange(bins, dtype=torch.float32, device=img.device)
+    w0 = _block_scan(hist)
+    sum0 = _block_scan(hist * levels)
+    sum_all = sum0[-1]
+    w1 = total - w0
+    mu0 = sum0 / torch.clamp(w0, min=1e-9)
+    mu1 = (sum_all - sum0) / torch.clamp(w1, min=1e-9)
+    d = mu0 - mu1
+    between = w0 * w1 * (d * d)
+    between = torch.where((w0 > 0) & (w1 > 0), between, torch.full_like(between, -1.0))
+    return torch.argmax(between).to(torch.float32)
 
 
 def scharr_derivatives(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -148,7 +217,7 @@ def min_eig_response(img: torch.Tensor, block_size: int = 3) -> torch.Tensor:
     eager JAX (the block sums in its order)."""
     ix, iy = sobel_derivatives(img)
     prods = torch.stack([ix * ix, iy * iy, ix * iy])
-    a, c, b = box_sum_integral(prods, block_size, xla_order=True) * 0.5
+    a, c, b = box_sum_integral(prods, block_size) * 0.5
     # f64 sqrt rounded to f32 is the correctly rounded f32 sqrt on either
     # device (torch's vectorized f32 sqrt on the CPU is not, XLA's is)
     root = torch.sqrt(((a - c) * (a - c) + b * b).double()).to(torch.float32)
@@ -180,12 +249,12 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 
 
 def harris_response(
-    img: torch.Tensor, block_size: int = 7, k: float = 0.04, deriv: str = "harris_orb",
-    xla_order: bool = False,
+    img: torch.Tensor, block_size: int = 7, k: float = 0.04, deriv: str = "harris_orb"
 ) -> torch.Tensor:
     """Per-pixel Harris response det(M) - k tr(M)^2. `harris_orb`: central
     differences and an un-weighted block sum, as ORB's HarrisResponses.
-    `xla_order`: block sums in eager JAX's order (see box_sum_integral)."""
+    The three block sums are one stacked `box_sum_integral` (eager JAX's
+    order: bit-equal to the JAX function)."""
     if deriv == "harris_orb":
         dfilt = np.array([-1.0, 0.0, 1.0], np.float32)
         one = np.array([1.0], np.float32)
@@ -193,9 +262,7 @@ def harris_response(
         iy = sep_filter2d(img, dfilt, one)
     else:
         ix, iy = sobel_derivatives(img)
-    sxx = box_sum_integral(ix * ix, block_size, xla_order)
-    syy = box_sum_integral(iy * iy, block_size, xla_order)
-    sxy = box_sum_integral(ix * iy, block_size, xla_order)
+    sxx, syy, sxy = box_sum_integral(torch.stack([ix * ix, iy * iy, ix * iy]), block_size)
     det = sxx * syy - sxy * sxy
     tr = sxx + syy
     return det - k * tr * tr
@@ -239,3 +306,88 @@ def remap(img: torch.Tensor, map_xy: torch.Tensor) -> torch.Tensor:
     """cv::remap analog: out[y, x] = img(map_xy[y, x, 0], map_xy[y, x, 1]),
     bilinear, clamped at the edges."""
     return bilinear_sample(img, map_xy)
+
+
+def _pixel_grid(out_h: int, out_w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ys, xs) f32 [out_h, out_w] pixel coordinates."""
+    ys = torch.arange(out_h, dtype=torch.float32, device=device)[:, None].expand(out_h, out_w)
+    xs = torch.arange(out_w, dtype=torch.float32, device=device)[None, :].expand(out_h, out_w)
+    return ys, xs
+
+
+def warp_affine(img: torch.Tensor, m, out_h: int, out_w: int) -> torch.Tensor:
+    """cv::warpAffine analog with WARP_INVERSE_MAP: m [2, 3] maps *output*
+    coordinates to input coordinates; bilinear, clamped at the edges.
+    Each product and sum is rounded as eager JAX rounds it."""
+    m = torch.as_tensor(m, dtype=torch.float32, device=img.device)
+    ys, xs = _pixel_grid(out_h, out_w, img.device)
+    src_x = m[0, 0] * xs + m[0, 1] * ys + m[0, 2]
+    src_y = m[1, 0] * xs + m[1, 1] * ys + m[1, 2]
+    return bilinear_sample(img, torch.stack([src_x, src_y], dim=-1))
+
+
+def warp_perspective(img: torch.Tensor, m, out_h: int, out_w: int) -> torch.Tensor:
+    """cv::warpPerspective analog: m [3, 3] output->input homography."""
+    m = torch.as_tensor(m, dtype=torch.float32, device=img.device)
+    ys, xs = _pixel_grid(out_h, out_w, img.device)
+    denom = m[2, 0] * xs + m[2, 1] * ys + m[2, 2]
+    denom = torch.where(denom.abs() < 1e-12, torch.full_like(denom, 1e-12), denom)
+    src_x = (m[0, 0] * xs + m[0, 1] * ys + m[0, 2]) / denom
+    src_y = (m[1, 0] * xs + m[1, 1] * ys + m[1, 2]) / denom
+    return bilinear_sample(img, torch.stack([src_x, src_y], dim=-1))
+
+
+def warp_polar(img: torch.Tensor, dsize: tuple[int, int], center: tuple[float, float],
+               max_radius: float, log: bool = False, inverse: bool = False) -> torch.Tensor:
+    """cv::warpPolar analog. Forward: dst[phi, rho] samples src along the
+    ray of angle 2 pi phi / H at radius rho maxR / W (linear) or
+    exp(rho ln(maxR) / W) - 1 (semilog); inverse maps a polar image back
+    to cartesian. Samples clamp at the border (the remap convention).
+
+    exp, log, cos, sin, sqrt and atan2 run in f64 and are rounded to f32,
+    so the card gives the CPU's bits; XLA's f32 versions differ from them
+    by an ulp at some pixels."""
+    h, w = dsize
+    cx, cy = center
+    dev = img.device
+    if not inverse:
+        rho_i = torch.arange(w, dtype=torch.float32, device=dev)
+        if log:
+            kmag = math.log(max(max_radius, 1e-9)) / w
+            rhos = torch.exp((rho_i * kmag).double()).to(torch.float32) - 1.0
+        else:
+            rhos = rho_i * (max_radius / w)
+        phi = (torch.arange(h, dtype=torch.float32, device=dev) * (2.0 * math.pi / h)).double()
+        cos, sin = torch.cos(phi).to(torch.float32), torch.sin(phi).to(torch.float32)
+        mx = rhos[None, :] * cos[:, None] + cx
+        my = rhos[None, :] * sin[:, None] + cy
+        return remap(img, torch.stack([mx, my], dim=-1))
+    sh, sw = img.shape[-2:]
+    kangle_s = 2.0 * math.pi / sh
+    kmag = math.log(max(max_radius, 1e-9)) / sw if log else max_radius / sw
+    ys, xs = _pixel_grid(h, w, dev)
+    dx = xs - cx
+    dy = ys - cy
+    mag = torch.sqrt((dx * dx + dy * dy).double()).to(torch.float32)
+    if log:
+        mag = torch.log((mag + 1.0).double()).to(torch.float32)
+    ang = torch.atan2(dy.double(), dx.double()).to(torch.float32)
+    ang = torch.where(ang < 0, ang + 2.0 * math.pi, ang)
+    # divide by device tensors: CUDA divides by a Python float as a multiply
+    # by its reciprocal, which rounds otherwise than the CPU's and XLA's division
+    kmag_t, kangle_t = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (kmag, kangle_s))
+    return remap(img, torch.stack([mag / kmag_t, ang / kangle_t], dim=-1))
+
+
+def linear_polar(img: torch.Tensor, center: tuple[float, float], max_radius: float,
+                 inverse: bool = False) -> torch.Tensor:
+    """cv::linearPolar analog (the legacy API: dst size == src size)."""
+    return warp_polar(img, img.shape[-2:], center, max_radius, log=False, inverse=inverse)
+
+
+def log_polar(img: torch.Tensor, center: tuple[float, float], m: float,
+              inverse: bool = False) -> torch.Tensor:
+    """cv::logPolar analog; `m` is the legacy magnitude scale, maxRadius =
+    exp(W / m)."""
+    max_radius = math.exp(img.shape[-1] / m) if m > 0 else 1.0
+    return warp_polar(img, img.shape[-2:], center, max_radius, log=True, inverse=inverse)

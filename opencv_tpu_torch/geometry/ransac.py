@@ -30,8 +30,10 @@ def sample_subsets(
     gen: torch.Generator, n: int, valid: torch.Tensor, n_subsets: int, subset_size: int
 ) -> torch.Tensor:
     """[H, S] indices of valid points, distinct within each subset
-    (Gumbel noise on log-weights, top-S per hypothesis)."""
-    u = torch.rand((n_subsets, n), generator=gen, device=valid.device)
+    (Gumbel noise on log-weights, top-S per hypothesis). The noise is
+    drawn on the generator's device: a CPU generator gives the same
+    subsets for points on the card as on the CPU."""
+    u = torch.rand((n_subsets, n), generator=gen, device=gen.device).to(valid.device)
     g = -torch.log(-torch.log(u.clamp(min=1e-20)))
     logw = torch.where(valid, 0.0, -float("inf"))[None, :]
     return torch.topk(g + logw, subset_size, dim=1).indices

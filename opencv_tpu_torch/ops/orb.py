@@ -179,7 +179,8 @@ def detect_and_compute(
         cand_idx, cand_keep = masked_top_k(score.reshape(-1), corner.reshape(-1), n_cand)
         cxy = torch.stack([(cand_idx % w).float(), (cand_idx // w).float()], dim=-1)
 
-        # stage 2: Harris rescoring + final cull
+        # stage 2: Harris rescoring + final cull (the ranking decides the slot
+        # order, so the block sums follow JAX's order: see box_sum_integral)
         harris = imgproc.harris_response(level, block_size=config.harris_block)
         cand_harris = harris.reshape(-1)[cand_idx]
         sel, keep = masked_top_k(cand_harris, cand_keep, budget)

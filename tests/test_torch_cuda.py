@@ -5,7 +5,11 @@ and a pyramid per launch), K3 (csrc/knn2_hamming.cu) and K4/K5
 counts), at the main path's shapes and at ragged ones, all exact; the LK
 path on the card against the same path on the CPU; and the plain PyTorch
 modules of the geometry slice (5-point, EPnP, calibration, the
-undistortion map and remap, LSH matching) on the card against the CPU.
+undistortion map and remap, LSH matching), of the tracking-and-lanes
+slice and of the calibration-app and video-stabilization slice (the rest
+of imgproc, connected components, chessboard and circles-grid
+detection, ECC, videostab; K4 at videostab's 200 points) on the card
+against the CPU.
 
 This file imports neither jax nor the JAX package, so that it runs on a
 machine that has only PyTorch:
@@ -132,6 +136,9 @@ def _lk_points(rng, n, h, w, win):
     (3, 21, 512, False),  # templates of the LK path
     (1, 48, 512, True),  # patch extraction at integer origins
     (1, 21, 2000, False),  # polish
+    (3, 21, 200, False),  # videostab's LK (GFTT's 200 corners): templates,
+    (1, 48, 200, True),  # patches
+    (1, 21, 200, False),  # and polish
     (2, 15, 37, False),  # ragged
 ])
 def test_lk_sample_kernel_equals_plain(card, n_ch, win, n, integer):
@@ -573,3 +580,160 @@ def test_detection_based_tracker_on_card_equals_cpu(card):
         for a, b in zip(dc.tracker.tracks, dg.tracker.tracks):
             assert np.abs(a.bbox - b.bbox).max() <= 0.05
     assert cuda_ops.launch_counts["lk_sample"] > 0
+
+
+# ------------------------------------------ calibration app, video stabilization
+
+
+@pytest.mark.cuda
+def test_imgproc_on_card_equals_cpu(card):
+    """Elementwise f32 arithmetic in the same order: the card's bits are the
+    CPU's; the polar warps within 1e-2, their tolerance against JAX (the
+    card's f64 sin, cos and atan2 may differ from the CPU's in the last
+    f64 bit, which can round an f32 coordinate the other way: an ulp of a
+    coordinate moves a sample of this noise image by up to ~1e-2)."""
+    from opencv_tpu_torch.core import imgproc
+
+    rng = np.random.default_rng(31)
+    img = torch.from_numpy(np.round(rng.uniform(0, 255, (480, 640))).astype(np.float32))
+    rgb = torch.from_numpy(rng.uniform(0, 255, (48, 64, 3)).astype(np.float32))
+    g = img.to(card)
+    m = torch.tensor([[1.02, 0.03, 2.5], [-0.02, 0.98, 1.5]])
+    hm = torch.tensor([[1.02, 0.03, 2.5], [-0.02, 0.98, 1.5], [1e-4, -2e-4, 1.0]])
+    pairs = [(imgproc.to_gray(rgb.to(card)), imgproc.to_gray(rgb)),
+             (imgproc.otsu_threshold(g), imgproc.otsu_threshold(img)),
+             (imgproc.integral(g), imgproc.integral(img)),
+             (imgproc.warp_affine(g, m, 480, 640), imgproc.warp_affine(img, m, 480, 640)),
+             (imgproc.warp_perspective(g, hm, 480, 640), imgproc.warp_perspective(img, hm, 480, 640))]
+    pairs += [(imgproc.threshold(g, 100.0, 200.0, k), imgproc.threshold(img, 100.0, 200.0, k))
+              for k in ("binary", "binary_inv", "trunc", "tozero", "tozero_inv")]
+    for got, want in pairs:
+        assert torch.equal(got.cpu(), want)
+    for log in (False, True):
+        for inverse in (False, True):
+            got = imgproc.warp_polar(g, (360, 240), (320.0, 240.0), 230.0, log, inverse)
+            want = imgproc.warp_polar(img, (360, 240), (320.0, 240.0), 230.0, log, inverse)
+            assert float((got.cpu() - want).abs().max()) <= 1e-2
+
+
+def _circles_view(step=110, r=27, h=480, w=640):
+    """A 5x4 grid of dark disks (30) on 220 at step 110 px, centred: the
+    calibration app's circles view."""
+    img = np.full((h, w), 220.0, np.float32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    x0, y0 = (w - 4 * step) // 2, (h - 3 * step) // 2
+    for i in range(4):
+        for j in range(5):
+            img[(yy - (y0 + i * step)) ** 2 + (xx - (x0 + j * step)) ** 2 <= r * r] = 30.0
+    return img
+
+
+@pytest.mark.cuda
+def test_ccomp_and_circles_grid_on_card_equal_cpu(card):
+    from opencv_tpu_torch.ops import ccomp, chessboard
+
+    rng = np.random.default_rng(32)
+    mask = torch.from_numpy(rng.random((480, 640)) > 0.55)
+    for conn in (4, 8):
+        got = ccomp.connected_components_stats(mask.to(card), conn)
+        want = ccomp.connected_components_stats(mask, conn)
+        assert torch.equal(got.labels.cpu(), want.labels)
+        assert (got.sweeps, got.host_reads) == (want.sweeps, want.host_reads)
+    img = _circles_view()
+    bg, bc = ccomp.detect_blobs(img, device=card), ccomp.detect_blobs(img, device="cpu")
+    for name in ("xy", "area", "circularity", "valid"):
+        assert torch.equal(getattr(bg, name).cpu(), getattr(bc, name)), name
+    (pg, okg), (pc, okc) = (chessboard.find_circles_grid(img, (5, 4), device=d) for d in (card, "cpu"))
+    assert okg and okc
+    np.testing.assert_array_equal(pg, pc)
+
+
+def _board_view(rvec, tvec, dev):
+    """examples/calibration_app.py's 7x5 board at a pose, through the
+    port's warp_perspective, 480x640."""
+    from opencv_tpu_torch.core import imgproc
+    from opencv_tpu_torch.geometry.rotation import rodrigues
+
+    sq, cols, rows = 40, 7, 5
+    bw, bh = (cols + 1) * sq, (rows + 1) * sq
+    board = np.full((bh + 2 * sq, bw + 2 * sq), 210.0, np.float32)
+    for i in range(rows + 1):
+        for j in range(cols + 1):
+            if (i + j) % 2 == 0:
+                board[sq * (i + 1):sq * (i + 2), sq * (j + 1):sq * (j + 2)] = 30.0
+    K = np.array([[520.0, 0, 326.0], [0, 525.2, 236.0], [0, 0, 1]])
+    R = rodrigues(torch.tensor(rvec, dtype=torch.float32)).numpy().astype(np.float64)
+    s = 0.1 / sq
+    T = np.array([[s, 0, -(bw / 2 + sq) * s], [0, s, -(bh / 2 + sq) * s], [0, 0, 1]])
+    hom = K @ np.column_stack([R[:, 0], R[:, 1], tvec]) @ T
+    return imgproc.warp_perspective(torch.from_numpy(board).to(dev),
+                                    np.linalg.inv(hom).astype(np.float32), 480, 640)
+
+
+@pytest.mark.cuda
+def test_chessboard_on_card_equals_cpu(card):
+    """Detected corners within 1e-3 px of the CPU's."""
+    from opencv_tpu_torch.ops import chessboard
+
+    for rvec, tvec in (([0.25, -0.30, 0.10], [-0.20, -0.10, 2.6]),
+                       ([-0.30, 0.25, -0.05], [0.15, 0.05, 2.4])):
+        img = _board_view(rvec, tvec, card)
+        assert torch.equal(img.cpu(), _board_view(rvec, tvec, "cpu"))
+        got = chessboard.find_chessboard_corners(img, (7, 5), device=card)
+        want = chessboard.find_chessboard_corners(img.cpu(), (7, 5), device="cpu")
+        assert got is not None and want is not None
+        assert np.abs(got - want).max() <= 1e-3
+
+
+def _stab_pair(dev, angle=0.01, h=480, w=640):
+    """A blurred noise texture and its copy moved by (1.7, -0.9) px and
+    rotated by `angle` rad, 480x640."""
+    from opencv_tpu_torch.core import imgproc
+
+    rng = np.random.default_rng(33)
+    big = torch.from_numpy(rng.uniform(0, 255, (h + 40, w + 40)).astype(np.float32)).to(dev)
+    big = imgproc.gaussian_blur(big, 7, 2.0)
+    c, s = np.cos(angle), np.sin(angle)
+    f0 = imgproc.warp_affine(big, [[1.0, 0.0, 20.0], [0.0, 1.0, 20.0]], h, w)
+    f1 = imgproc.warp_affine(big, [[c, -s, 21.7], [s, c, 19.1]], h, w)
+    return f0, f1
+
+
+@pytest.mark.cuda
+def test_ecc_on_card_equals_cpu(card):
+    from opencv_tpu_torch.ops import ecc
+
+    for motion, angle in (("translation", 0.0), ("euclidean", 0.01), ("affine", 0.01)):
+        (f0g, f1g), (f0c, f1c) = _stab_pair(card, angle), _stab_pair("cpu", angle)
+        wg, rg = ecc.find_transform_ecc(f0g, f1g, motion, device=card)
+        wc, rc = ecc.find_transform_ecc(f0c, f1c, motion, device="cpu")
+        assert float((wg.cpu() - wc).abs().max()) <= 1e-4
+        assert abs(float(rg) - float(rc)) <= 1e-5 and float(rg) > 0.98
+
+
+@pytest.mark.cuda
+def test_videostab_on_card_equals_cpu(card):
+    """One 480x640 pair (K4 at level 0, 3 launches): the same seed draws the
+    same RANSAC subsets on both devices; the motions agree within 0.05 px
+    at the frame's corners. Deblurring and wobble suppression within their
+    FFTs' rounding."""
+    from opencv_tpu_torch.ops import videostab
+
+    (f0g, f1g), (f0c, f1c) = _stab_pair(card), _stab_pair("cpu")
+    gens = [torch.Generator().manual_seed(5) for _ in range(2)]
+    cuda_ops.reset_launch_counts()
+    mg = videostab.estimate_global_motion(f0g, f1g, gens[0], device=card).cpu().double()
+    torch.cuda.synchronize()
+    assert cuda_ops.launch_counts["lk_sample"] == 3
+    mc = videostab.estimate_global_motion(f0c, f1c, gens[1], device="cpu").double()
+    corners = torch.tensor([[0, 0, 1], [639, 0, 1], [0, 479, 1], [639, 479, 1]], dtype=torch.float64)
+    assert float((corners @ mg.T - corners @ mc.T).abs().max()) <= 0.05
+    dg = videostab.deblur_weiner_gaussian(f0g, 5.0, 0.3, device=card)
+    dc = videostab.deblur_weiner_gaussian(f0c, 5.0, 0.3, device="cpu")
+    assert float((dg.cpu() - dc).abs().max()) <= 1e-2
+    t = np.arange(40)
+    motions = np.zeros((40, 2, 3), np.float32)
+    motions[:, 0, 2] = 0.5 * np.sin(t / 15.0) + 0.3 * (-1.0) ** t
+    motions[:, 1, 2] = 0.02 * t
+    np.testing.assert_allclose(videostab.suppress_wobble(motions, device=card),
+                               videostab.suppress_wobble(motions, device="cpu"), rtol=0, atol=1e-5)

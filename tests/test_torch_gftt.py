@@ -70,10 +70,10 @@ def test_block_scan_is_xla_cumsum(rng, n):
 def test_box_sums_in_xla_order_bit_equal(images, ksize):
     img = images["frame"]
     np.testing.assert_array_equal(
-        timg.box_sum_integral(torch.from_numpy(img), ksize, xla_order=True).numpy(),
+        timg.box_sum_integral(torch.from_numpy(img), ksize).numpy(),
         np.asarray(jimg.box_sum_integral(jnp.asarray(img), ksize)))
     np.testing.assert_array_equal(
-        timg.harris_response(torch.from_numpy(img), ksize, deriv="sobel", xla_order=True).numpy(),
+        timg.harris_response(torch.from_numpy(img), ksize, deriv="sobel").numpy(),
         np.asarray(jimg.harris_response(jnp.asarray(img), ksize, deriv="sobel")))
 
 

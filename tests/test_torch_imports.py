@@ -31,28 +31,33 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 
 def test_every_slice_module_is_checked():
     """The import checks below walk the whole package; the LK slice's,
-    the geometry slice's and the tracking-and-lanes slice's modules are
-    among them."""
+    the geometry slice's, the tracking-and-lanes slice's and the
+    calibration-app and video-stabilization slice's modules are among
+    them."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for mod in ("ops/lk.py", "ops/gftt.py", "ops/cuda/lk_sample.py", "core/pyramid.py",
                 "slam/vo.py", "geometry/five_point.py", "geometry/epnp.py", "geometry/ap3p.py",
                 "geometry/ippe.py", "geometry/affine2d.py", "geometry/calibration.py",
                 "optim/levmarq.py", "optim/minimize.py", "ops/lsh.py", "ops/kalman.py",
                 "tbd/assignment.py", "tbd/tracker.py", "tbd/detection_based.py", "ops/hog.py",
-                "ops/edges.py", "ops/hough.py"):
+                "ops/edges.py", "ops/hough.py", "core/imgproc.py", "ops/ccomp.py",
+                "ops/chessboard.py", "ops/ecc.py", "ops/videostab.py"):
         assert f"opencv_tpu_torch/{mod}" in names
 
 
 NUMPY_ENTRY_POINTS = ("calibrate_camera", "stereo_calibrate", "calibrate_fisheye",
                       "init_undistort_rectify_map", "build_lsh_index", "verify_candidate", "solve_lp",
-                      "Tracker", "DetectionBasedTracker", "detect_multi_scale")
+                      "Tracker", "DetectionBasedTracker", "detect_multi_scale",
+                      "connected_components", "detect_blobs", "find_chessboard_corners",
+                      "find_circles_grid", "find_transform_ecc", "estimate_global_motion", "estimate_motions",
+                      "stabilize", "deblur_weiner_gaussian", "suppress_wobble")
 
 
 def _numpy_entry_points():
     """{name: call} of every entry point that takes numpy and makes
     tensors, each called with no device."""
     from opencv_tpu_torch.geometry import calibration
-    from opencv_tpu_torch.ops import hog, lsh
+    from opencv_tpu_torch.ops import ccomp, chessboard, ecc, hog, lsh, videostab
     from opencv_tpu_torch.optim import minimize
     from opencv_tpu_torch.slam import loop_closure
     from opencv_tpu_torch.tbd import DetectionBasedTracker, Tracker
@@ -81,6 +86,21 @@ def _numpy_entry_points():
             lambda img: np.zeros((0, 4), np.float32)).process_frame(np.zeros((16, 16), np.float32)),
         "detect_multi_scale": lambda: hog.detect_multi_scale(
             np.zeros((128, 64), np.float32), np.zeros(3780, np.float32), 0.0),
+        "connected_components": lambda: ccomp.connected_components(np.ones((4, 4), bool)),
+        "detect_blobs": lambda: ccomp.detect_blobs(np.zeros((8, 8), np.float32)),
+        "find_chessboard_corners": lambda: chessboard.find_chessboard_corners(
+            np.zeros((32, 32), np.float32), (3, 3)),
+        "find_circles_grid": lambda: chessboard.find_circles_grid(np.zeros((32, 32), np.float32),
+                                                                   (3, 3)),
+        "find_transform_ecc": lambda: ecc.find_transform_ecc(np.zeros((16, 16), np.float32),
+                                                             np.zeros((16, 16), np.float32)),
+        "estimate_global_motion": lambda: videostab.estimate_global_motion(
+            np.zeros((32, 32), np.float32), np.zeros((32, 32), np.float32)),
+        "estimate_motions": lambda: videostab.estimate_motions([np.zeros((32, 32), np.float32)] * 2),
+        "stabilize": lambda: videostab.stabilize([np.zeros((32, 32), np.float32)] * 2),
+        "deblur_weiner_gaussian": lambda: videostab.deblur_weiner_gaussian(
+            np.zeros((16, 16), np.float32), 3.0),
+        "suppress_wobble": lambda: videostab.suppress_wobble(np.zeros((8, 2, 3), np.float32)),
     }
 
 

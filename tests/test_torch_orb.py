@@ -3,13 +3,22 @@
 Measured on these inputs (integer-valued images): pyramid level 0 and
 every blurred level are bit-exact; bilinear levels >= 1 are exact or
 differ by at most 2 ulp (XLA contracts the two-tap sum into an FMA on
-some pixels); angles differ by < 3e-4 rad and Harris responses by
-< 3e-4 relative (prefix-sum order); keypoint
-positions, validity and levels are equal; descriptors agree on 100% of
-bits. The bounds asserted below are looser than what was measured only
-where a rounding could flip a tap: <= 4 ulp on levels, >= 99.5% equal
-descriptor bits, >= 98% equal keypoint positions.
+some pixels); the Harris response sums its blocks in eager JAX's
+prefix-sum order and is bit-equal to the eager JAX function; angles
+differ by < 3e-4 rad and keypoint responses by < 1e-2 relative where
+they cancel toward zero (the levels' ulps); keypoint positions,
+validity and levels are equal; descriptors agree on 100% of bits. The
+bounds asserted below are looser than what was measured only where a
+rounding could flip a tap: <= 4 ulp on levels, >= 99.5% equal
+descriptor bits, >= 98% equal keypoint positions on rendered frames.
+On real video (benchmarks/data/megamind_gray.avi, frames 100 and 149 at
+2000 features) every slot is held: the same valid mask, levels and
+descriptor bits, positions within 1e-4 px (sub-pixel refinement of
+levels that differ by an ulp; measured <= 7.7e-5), responses at rtol
+1e-2 (measured <= 7.5e-3).
 """
+
+import pathlib
 
 import numpy as np
 import jax.numpy as jnp
@@ -93,7 +102,7 @@ def test_detect_and_compute_matches_jax(images, name):
     same_xy = np.all(np.abs(kt.xy.numpy() - np.asarray(kj.xy)) < 1e-4, axis=1)[vj]
     assert same_xy.mean() >= 0.98
     np.testing.assert_allclose(kt.angle.numpy()[vj], np.asarray(kj.angle)[vj], atol=1e-3)
-    # Harris block sums are prefix sums of values ~1e8: measured <= 3e-4 relative
+    # responses of levels >= 1 that differ by an ulp: measured <= 3e-4 relative
     np.testing.assert_allclose(kt.response.numpy()[vj], np.asarray(kj.response)[vj], rtol=1e-3)
     bits_t = np.unpackbits(dt.numpy().view(np.uint8)[vt])
     bits_j = np.unpackbits(np.asarray(dj).view(np.uint8)[vj])
@@ -104,7 +113,7 @@ def test_harris_and_angles_close(images):
     img = images["frame"]
     hj = np.asarray(jimg.harris_response(jnp.asarray(img)))
     ht = timg.harris_response(torch.from_numpy(img)).numpy()
-    np.testing.assert_allclose(ht, hj, rtol=0, atol=1e-4 * np.abs(hj).max())
+    np.testing.assert_array_equal(ht, hj)
     aj = np.asarray(jorb.ic_angle_maps(jnp.asarray(img)))
     at = torb.ic_angle_maps(torch.from_numpy(img)).numpy()
     # atan2 of moments summed in another order: compare where the moments
@@ -143,3 +152,31 @@ def test_pose_record_equals_jax(rng):
         np.testing.assert_allclose(pt.t.numpy(), np.asarray(pj.t), atol=1e-6)
     np.testing.assert_allclose(c.apply(torch.from_numpy(pts)).numpy(),
                                np.asarray(a.apply(jnp.asarray(pts))), atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def megamind():
+    from opencv_tpu.io.video import read_mjpeg_avi
+
+    return read_mjpeg_avi(str(pathlib.Path(__file__).resolve().parents[1]
+                              / "benchmarks" / "data" / "megamind_gray.avi"))
+
+
+def test_detect_and_compute_on_real_video_matches_jax(megamind):
+    """Frames 100 and 149 at 2000 features: Harris ranks the candidates, so
+    its block sums must follow JAX's order for the slots to agree (with
+    torch.cumsum two slots per frame swapped)."""
+    assert megamind.shape == (150, 528, 720)
+    cfg_j, cfg_t = JORBConfig(n_features=2000), ORBConfig(n_features=2000)
+    run_j = jax.jit(lambda x: jorb.detect_and_compute(x, cfg_j))
+    for f in (100, 149):
+        img = megamind[f].astype(np.float32)
+        kj, dj = run_j(jnp.asarray(img))
+        kt, dt = torb.detect_and_compute(torch.from_numpy(img), cfg_t)
+        vj = np.asarray(kj.valid)
+        assert vj.sum() > 1000
+        np.testing.assert_array_equal(kt.valid.numpy(), vj)
+        np.testing.assert_array_equal(kt.level.numpy(), np.asarray(kj.level))
+        np.testing.assert_allclose(kt.xy.numpy()[vj], np.asarray(kj.xy)[vj], rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(dt.numpy().view(np.uint32)[vj], np.asarray(dj)[vj])
+        np.testing.assert_allclose(kt.response.numpy()[vj], np.asarray(kj.response)[vj], rtol=1e-2)

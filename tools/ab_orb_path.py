@@ -6,10 +6,13 @@ Each TREE is a checkout of this repository. For each, in the order given
 and each in a process of its own, the script runs that tree's
 `chip_smoke.phase_main_path`: `VisualOdometry.process_sequence` over the
 seeded 120-frame 480x640 scene at `ORBConfig(n_features=2000)`, one cold
-run and two warm runs. Give the trees in turns (parent, change,
-change, parent) so that both meet the same card and host load. Prints the
-card line, one JSON line per tree run, and a summary of warm frames/s and
-ATE per tree. Exits non-zero if a run fails or there is no card.
+run and two warm runs, then `chip_smoke.phase_profile` over frames 40-44
+of a fresh engine (kernels per frame, device busy share). Give the trees
+in turns (parent, change, change, parent) so that both meet the same
+card and host load. Prints the card line, one JSON line per tree run,
+each run's profile lines, and a summary of warm frames/s, ATE and
+kernels per frame per tree. Exits non-zero if a run fails or there is no
+card.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -30,6 +34,7 @@ cs.phase_build()
 frames, centres, K = cs.make_sequence()
 res = cs.phase_main_path(frames, centres, K, warm_runs=2)
 print("AB_RESULT " + json.dumps(res), flush=True)
+cs.phase_profile(frames, K, "orb", 40, 4)
 """
 
 
@@ -51,14 +56,20 @@ def main() -> int:
             return 1
         res = json.loads(lines[-1][len("AB_RESULT "):])
         res.pop("launches", None)
+        profile = [l for l in out.stdout.splitlines() if l.startswith("[profile ")]
+        per_frame = re.search(r"\((\d+) per frame\)", "\n".join(profile))
+        res["kernels_per_frame"] = int(per_frame.group(1)) if per_frame else None
         per_tree.setdefault(tree, []).append(res)
         print(json.dumps({"tree": tree, **res}), flush=True)
+        for line in profile:
+            print(f"[ab] {tree}: {line}", flush=True)
     for tree, runs in per_tree.items():
         fps = [f for r in runs for f in r["fps_warm_runs"]]
         print(f"[ab] {tree}: warm frames/s median {statistics.median(fps):.3f} over {len(fps)} "
               f"runs (range {min(fps):.3f} to {max(fps):.3f}); ATE % of path "
               f"{sorted({round(r['ate_pct'], 5) for r in runs})}; keyframes "
-              f"{sorted({r['keyframes'] for r in runs})}", flush=True)
+              f"{sorted({r['keyframes'] for r in runs})}; kernels per frame "
+              f"{[r['kernels_per_frame'] for r in runs]}", flush=True)
     return 0
 
 
