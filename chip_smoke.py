@@ -21,7 +21,7 @@ Phases:
      device times by CUDA events (kernel, plain version, one PyTorch
      library call where one computes the same function) beside the bound,
      and the first designs' times as labelled constants (FIRST_DESIGN_MS);
-  4. the twelve paths, each with the launch counts reset just before each
+  4. the fifteen paths, each with the launch counts reset just before each
      warm run and read just after it:
      a. ORB VO: VisualOdometry.process_sequence on a seeded 480x640
         synthetic sequence at bench_config5's engine config
@@ -94,11 +94,22 @@ Phases:
         5 pairs' motions on the CPU within 0.05 px; find_transform_ecc
         ("affine") on 3 pairs against their RANSAC motion, Wiener
         deblurring of one frame, wobble suppression of the motions;
+     m. pano: examples/panorama.py's 3 views of 160x200 on the card and
+        on the CPU, 5 views of 480x640 (estimate_panorama and
+        stitch_panorama) cold then warm twice, stitch_pair on two of them
+        against the CPU; K1 bit for bit against its plain version on
+        every view's 4-level ORB pyramid;
+     n. qr: examples/qr_demo.py's round trip and 24 scenes of 480x640
+        (versions 1-3), detect and decode, every text read, the CPU's
+        quads and texts equal;
+     o. seg: examples/segmentation_demo.py (GrabCut, watershed, CamShift)
+        at its sizes with its verdict, and at 480x640; card against CPU;
   5. profile: torch.profiler over frames 40-44 of steady tracking of the
      ORB engine and of the klt engine, one two-view
      pair, one calibrate_camera of 20 views, one warm HOG-mode frame
-     (detect and track), one warm calibration-app run and stabilize over
-     8 frames (device busy share, kernels per unit, top kernels, top host
+     (detect and track), one warm calibration-app run, stabilize over
+     8 frames, one 480x640 panorama and one 480x640 GrabCut iteration
+     (device busy share, kernels per unit, top kernels, top host
      operations).
 Prints a JSON line of path results (each with its unit and unit count),
 a JSON line of kernels, the card line, and last {"ok": true, "device":
@@ -107,6 +118,7 @@ a JSON line of kernels, the card line, and last {"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -1924,6 +1936,520 @@ def phase_stab(base: np.ndarray, n_frames: int = 60, dev: str = "cuda") -> dict:
     return res
 
 
+# ------------------------------------------------------------ panorama, QR and segmentation slice
+
+# examples/panorama.py's scene (a) and its 480x640 counterpart (b): a plane
+# at z = 1 textured by a bilinearly upsampled uniform(30, 225) grid, seen by
+# pure rotations about y; (b) keeps (a)'s 1:1 sampling (ts / (2 span) = F)
+# and 8-px blobs
+PANO_A = dict(F=200.0, h=160, w=200, yaws=(-0.45, 0.0, 0.45), ts=720, span=1.8, n_features=700)
+PANO_B = dict(F=600.0, h=480, w=640, yaws=(-0.6, -0.3, 0.0, 0.3, 0.6), ts=2880, span=2.4,
+              n_features=2000)
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """PyTorch's CPU thread count set to n inside the block: the CPU
+    references of small images run many small operations, which more
+    threads only slow down."""
+    import torch
+
+    prev = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
+
+
+def pano_views(cfg: dict, dev: str = "cuda"):
+    """Render the pure-rotation views of examples/panorama.py with the
+    port's warp_perspective. Returns (views [list of f32 [H, W] on dev],
+    rotations [N, 3, 3])."""
+    import torch
+
+    from opencv_tpu_torch.core import imgproc
+    from opencv_tpu_torch.geometry.rotation import rodrigues
+
+    rng = np.random.default_rng(3)
+    ts, span, F, h, w = cfg["ts"], cfg["span"], cfg["F"], cfg["h"], cfg["w"]
+    tex = torch.from_numpy(rng.uniform(30, 225, (ts // 8, ts // 8)).astype(np.float32)).to(dev)
+    tex = imgproc.resize_bilinear(tex, ts, ts)
+    S = np.array([[ts / (2 * span), 0, ts / 2], [0, ts / (2 * span), ts / 2], [0, 0, 1]])
+    K = np.array([[F, 0, w / 2], [0, F, h / 2], [0, 0, 1]])
+    views, Rs = [], []
+    for yaw in cfg["yaws"]:
+        R = rodrigues(torch.tensor([0.0, yaw, 0.0])).double().numpy()
+        views.append(imgproc.warp_perspective(tex, (S @ np.linalg.inv(K @ R)).astype(np.float32), h, w))
+        Rs.append(R)
+    return views, np.stack(Rs)
+
+
+def pano_geometry_errors(R: np.ndarray, Rs: np.ndarray, f: float, F: float):
+    """(relative focal error, per-view relative rotation errors in degrees
+    against view 0, as tests/test_global_stitch.py measures them)."""
+    rel = [_rot_deg(R[k] @ R[0].T, Rs[k] @ Rs[0].T) for k in range(1, len(Rs))]
+    return abs(f - F) / F, rel
+
+
+def pano_run(views, cfg: dict, dev: str):
+    """The example's flow: estimate_panorama, then stitch_panorama (which
+    estimates again), both seeded 1, two bands."""
+    from opencv_tpu_torch.stitching import global_stitch as gs
+
+    R, f, diag = gs.estimate_panorama(views, n_features=cfg["n_features"], seed=1, device=dev)
+    pano = gs.stitch_panorama(views, n_features=cfg["n_features"], seed=1, blend_bands=2, device=dev)
+    return R, f, diag, pano
+
+
+def k1_exact_on_orb_pyramid(view, n_features: int) -> float:
+    """K1 held against its plain version, level by level and bit for bit,
+    at the launch the panorama's ORB makes for `view`: its pyramid
+    (ORBConfig with 4 levels, as estimate_panorama and stitch_pair build
+    it) in one call of the multi-level entry. Fails on any difference;
+    returns the largest |kernel - plain| (0.0)."""
+    import torch
+
+    from opencv_tpu_torch.core import pyramid
+    from opencv_tpu_torch.core.config import ORBConfig
+    from opencv_tpu_torch.ops import orb
+    from opencv_tpu_torch.ops.cuda import fast_kernel
+
+    cfg = ORBConfig(n_features=n_features, n_levels=4)
+    pyr = pyramid.build_pyramid(view.to(torch.float32), cfg.n_levels, cfg.scale_factor)
+    budgets = orb.level_budgets(cfg.n_features, cfg.n_levels, cfg.scale_factor)
+    levels = [pyr.levels[lvl] for lvl in range(cfg.n_levels) if budgets[lvl] > 0]
+    err = 0.0
+    for lvl, (s_k, n_k) in zip(levels, fast_kernel.fast_corners_levels(levels, cfg.fast_threshold)):
+        s_p, n_p = fast_kernel.fast_corners_plain(lvl, cfg.fast_threshold)
+        err = max(err, max_abs_err((s_k, s_p), (n_k, n_p)))
+        if not (torch.equal(s_k, s_p) and torch.equal(n_k, n_p)):
+            bad = (s_k != s_p).sum().item() + (n_k != n_p).sum().item()
+            fail(f"K1 differs from its plain version on a panorama view's pyramid at "
+                 f"{tuple(lvl.shape)}: {bad} values")
+    return err
+
+
+def phase_pano(dev: str = "cuda") -> dict:
+    """[pano] (a) examples/panorama.py: 3 views of 160x200 (F = 200, yaws
+    -0.45/0/0.45, 700 features, seed 1, 2 bands); (b) 5 views of 480x640
+    (F = 600, yaws -0.6..0.6, 2000 features), cold, then warm WARM_RUNS
+    times; stitch_pair on views 2 and 3 of (b). Bounds: focal within 12 %,
+    relative rotations < 3 deg, (a)'s tree of 2 edges
+    (tests/test_global_stitch.py:70-79). The CPU gets the same RANSAC
+    subsets (one CPU generator per call): on (a), focal within 1e-3
+    relative, rotations within 0.05 deg, and (a)'s panorama composed from
+    the card's rotations on both devices with >= 99 % of its pixels within
+    0.5 grey levels; stitch_pair the same pixel rule. (b) on the card
+    alone: the port's CPU run of it takes minutes."""
+    import torch
+
+    from opencv_tpu_torch.stitching import global_stitch as gs
+    from opencv_tpu_torch.stitching import stitcher
+
+    def pixel_share(a, b, tol=0.5):
+        return float((np.abs(a - b) <= tol).mean()) if a.shape == b.shape else 0.0
+
+    # (a): the example at its own size, on the card and on the CPU
+    va, Rs_a = pano_views(PANO_A, dev)
+    t0 = time.perf_counter()
+    Ra, fa, diag_a, pano_a = pano_run(va, PANO_A, dev)
+    a_s = time.perf_counter() - t0
+    ferr_a, rot_a = pano_geometry_errors(Ra, Rs_a, fa, PANO_A["F"])
+    with torch_threads(1):
+        Rc, fc, diag_c, _ = pano_run([v.cpu() for v in va], PANO_A, "cpu")
+        comp_cpu = gs.compose_panorama([v.cpu() for v in va], Ra, fa, blend_bands=2).numpy()
+    comp_card = gs.compose_panorama(va, Ra, fa, blend_bands=2).cpu().numpy()
+    a_cpu = dict(focal_rel=abs(fa - fc) / fc, rot_deg=max(_rot_deg(x, y) for x, y in zip(Ra, Rc)),
+                 tree_equal=diag_a["tree"] == diag_c["tree"],
+                 pixels_within_0_5=pixel_share(comp_card, comp_cpu))
+    print(f"[pano] (a) examples/panorama.py 3 views 160x200: focal {fa:.2f} (truth {PANO_A['F']}, "
+          f"{100 * ferr_a:.2f} %), relative rotations {[round(r, 4) for r in rot_a]} deg, "
+          f"{len(diag_a['edges'])} confident pairs, tree {diag_a['tree']}; panorama "
+          f"{pano_a.shape[1]}x{pano_a.shape[0]}, covered {(pano_a > 1.0).mean():.3f}; {a_s:.2f} s "
+          f"(cold); card vs CPU: focal {a_cpu['focal_rel']:.2e} relative, rotations "
+          f"{a_cpu['rot_deg']:.2e} deg, trees equal {a_cpu['tree_equal']}, composed pixels within "
+          f"0.5: {a_cpu['pixels_within_0_5']:.5f}", flush=True)
+    if not (ferr_a < 0.12 and max(rot_a) < 3.0 and len(diag_a["tree"]) == 2):
+        fail(f"pano (a): focal error {ferr_a:.4f}, rotation errors {rot_a} deg, tree {diag_a['tree']}")
+    if not (a_cpu["focal_rel"] <= 1e-3 and a_cpu["rot_deg"] <= 0.05 and a_cpu["tree_equal"]
+            and a_cpu["pixels_within_0_5"] >= 0.99):
+        fail(f"pano (a): the card differs from the CPU: {a_cpu}")
+
+    # (b): 5 views of 480x640 on the card, cold then warm
+    vb, Rs_b = pano_views(PANO_B, dev)
+    t0 = time.perf_counter()
+    pano_run(vb, PANO_B, dev)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    outs, secs, runs = warm_runs_of(lambda: pano_run(vb, PANO_B, dev), WARM_RUNS)
+    Rb, fb, diag_b, pano_b = outs[0]
+    ferr_b, rot_b = pano_geometry_errors(Rb, Rs_b, fb, PANO_B["F"])
+
+    # stitch_pair on views 2 and 3 of (b), card and CPU
+    stitcher.stitch_pair(vb[2], vb[3], n_features=2000, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pair = stitcher.stitch_pair(vb[2], vb[3], n_features=2000, device=dev)
+    pair_s = time.perf_counter() - t0
+    pair_cpu = stitcher.stitch_pair(vb[2].cpu(), vb[3].cpu(), n_features=2000, device="cpu")
+    pair_share = pixel_share(pair, pair_cpu)
+    warm = statistics.median(secs)
+    res = dict(units=1, unit="panorama", views=len(vb), focal=fb, focal_rel_err=ferr_b,
+               rel_rot_deg=rot_b, edges=diag_b["edges"], tree=diag_b["tree"],
+               pano_hw=list(pano_b.shape), covered=float((pano_b > 1.0).mean()),
+               s_warm=warm, s_warm_runs=secs, cold_s=cold, pair_s=pair_s,
+               pair_hw=list(pair.shape), pair_card_vs_cpu_within_0_5=pair_share,
+               example_a=dict(focal=fa, focal_rel_err=ferr_a, rel_rot_deg=rot_a, tree=diag_a["tree"],
+                              pano_hw=list(pano_a.shape), card_vs_cpu=a_cpu),
+               launches=runs[0])
+    print(f"[pano] (b) 5 views 480x640: focal {fb:.2f} (truth {PANO_B['F']}, {100 * ferr_b:.2f} %), "
+          f"relative rotations {[round(r, 4) for r in rot_b]} deg, pairs {diag_b['edges']}, tree "
+          f"{diag_b['tree']}; panorama {pano_b.shape[1]}x{pano_b.shape[0]}, covered "
+          f"{res['covered']:.3f}; warm {warm:.3f} s per panorama (estimate_panorama + stitch_panorama; "
+          f"median of {WARM_RUNS}, runs {[round(t, 3) for t in secs]}), cold {cold:.3f} s; K1 launches "
+          f"{runs[0]['fast_corners']}; launches {runs[0]}", flush=True)
+    print(f"[pano] stitch_pair views 2-3 of (b): {pair.shape[1]}x{pair.shape[0]}, warm {pair_s:.3f} s; "
+          f"card vs CPU pixels within 0.5: {pair_share:.5f}", flush=True)
+    if not (ferr_b < 0.12 and max(rot_b) < 3.0):
+        fail(f"pano (b): focal error {ferr_b:.4f}, rotation errors {rot_b} deg")
+    if not pair_share >= 0.99:
+        fail(f"pano: stitch_pair on the card differs from the CPU ({pair_share:.5f} within 0.5)")
+    if any(r["fast_corners"] <= 0 for r in runs):
+        fail("kernel fast_corners was not launched by the panorama's ORB")
+    # K1 at the panorama's own launches: every view's 4-level pyramid of (a) and (b)
+    k1_err = max(k1_exact_on_orb_pyramid(v, cfg["n_features"])
+                 for views, cfg in ((va, PANO_A), (vb, PANO_B)) for v in views)
+    res["k1_pyramid_max_abs_err"] = k1_err
+    print(f"[pano] K1 exact against its plain version on the 4-level pyramids of all "
+          f"{len(va) + len(vb)} views (160x200 and 480x640): max_abs_err {k1_err}", flush=True)
+    return res
+
+
+QR_TEXTS = {1: "HELLO-TPU", 2: "opencv_tpu qr decode 123",
+            3: "the quick brown fox jumps over the lazy dog 01234"}  # tests/test_qrcode.py:28-32
+
+
+def qr_scenes(n: int = 24, h: int = 480, w: int = 640, seed: int = 0):
+    """n scenes of h x w: grey 190, N(0, 6) noise; n/3 codes each of
+    versions 1, 2 and 3 (QR_TEXTS), module sizes cycling 4-8 px, seeded
+    offsets that keep the code inside the frame. Returns (scenes [n, h, w]
+    f32, texts)."""
+    from opencv_tpu_torch.ops import qrcode
+
+    rng = np.random.default_rng(seed)
+    scenes, texts = [], []
+    for i in range(n):
+        version = 1 + (3 * i) // n
+        img = qrcode.render_qr(qrcode.encode_qr(QR_TEXTS[version], version), 4 + i % 5)
+        y0 = int(rng.integers(0, h - img.shape[0] + 1))
+        x0 = int(rng.integers(0, w - img.shape[1] + 1))
+        scene = np.full((h, w), 190.0, np.float32)
+        scene[y0:y0 + img.shape[0], x0:x0 + img.shape[1]] = img
+        scene += rng.normal(0, 6.0, scene.shape).astype(np.float32)
+        scenes.append(scene)
+        texts.append(QR_TEXTS[version])
+    return np.stack(scenes), texts
+
+
+def qr_demo_scene():
+    """examples/qr_demo.py's scene: version 2, 5-px modules, 300x340."""
+    from opencv_tpu_torch.ops import qrcode
+
+    img = qrcode.render_qr(qrcode.encode_qr("opencv_tpu says hi", version=2), module_px=5)
+    rng = np.random.default_rng(0)
+    scene = np.full((300, 340), 190.0, np.float32)
+    scene[70:70 + img.shape[0], 90:90 + img.shape[1]] = img
+    scene += rng.normal(0, 6.0, scene.shape).astype(np.float32)
+    return scene
+
+
+def qr_read(scenes, dev: str):
+    """detect_qr + decode_qr of every scene: [(quad, ok, text)]."""
+    from opencv_tpu_torch.ops import qrcode
+
+    out = []
+    for scene in scenes:
+        quad, ok = qrcode.detect_qr(scene, device=dev)
+        out.append((quad, ok, qrcode.decode_qr(scene, quad, device=dev) if ok else None))
+    return out
+
+
+def phase_qr(dev: str = "cuda") -> dict:
+    """[qr] (a) examples/qr_demo.py's round trip; (b) 24 scenes of 480x640
+    (qr_scenes), detect and decode, cold, then warm WARM_RUNS times. Every
+    code must decode to its text; the CPU's quads and texts equal the
+    card's on every scene."""
+    import torch
+
+    demo = torch.from_numpy(qr_demo_scene()).to(dev)
+    (quad, ok, text), = qr_read([demo], dev)
+    (cquad, cok, ctext), = qr_read([demo.cpu()], "cpu")
+    print(f"[qr] (a) examples/qr_demo.py: detected {ok}, decoded {text!r}; card vs CPU quad equal "
+          f"{np.array_equal(quad, cquad)}, text equal {text == ctext}", flush=True)
+    if text != "opencv_tpu says hi":
+        fail(f"qr (a): round trip failed ({text!r})")
+    if not (np.array_equal(quad, cquad) and ctext == text):
+        fail("qr (a): the CPU's quad or text differs from the card's")
+
+    scenes_np, texts = qr_scenes()
+    scenes = torch.from_numpy(scenes_np).to(dev)
+    t0 = time.perf_counter()
+    qr_read(scenes, dev)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    outs, secs, runs = warm_runs_of(lambda: qr_read(scenes, dev), WARM_RUNS)
+    got = outs[0]
+    decoded = sum(t == want for (_, _, t), want in zip(got, texts))
+    cpu = qr_read(torch.from_numpy(scenes_np), "cpu")
+    same = sum(np.array_equal(q, cq) and t == ct for (q, _, t), (cq, _, ct) in zip(got, cpu))
+    n = len(texts)
+    warm = statistics.median(secs)
+    res = dict(units=n, unit="frame", decoded=decoded, total=n, fps_warm=n / warm,
+               fps_warm_runs=[n / s for s in secs], cold_s=cold, card_equals_cpu=same,
+               per_scene=[dict(version=1 + (3 * i) // n, module_px=4 + i % 5, text_ok=t == want)
+                          for i, ((_, _, t), want) in enumerate(zip(got, texts))],
+               launches=runs[0])
+    print(f"[qr] (b) 24 scenes 480x640 (versions 1-3, modules 4-8 px, N(0, 6) noise): decoded "
+          f"{decoded}/{n}; warm {n / warm:.2f} frames/s detect + decode (median of {WARM_RUNS}, range "
+          f"{n / max(secs):.2f} to {n / min(secs):.2f}), cold {cold:.3f} s; card vs CPU quads and texts "
+          f"equal on {same}/{n}; launches {runs[0]}", flush=True)
+    if decoded != n:
+        misses = [(r["version"], r["module_px"]) for r in res["per_scene"] if not r["text_ok"]]
+        fail(f"qr (b): decoded {decoded} of {n} (missed version, module px: {misses})")
+    if same != n:
+        fail(f"qr (b): the CPU's quads or texts differ from the card's on {n - same} scenes")
+    return res
+
+
+SEG_SCALE = 480 / 70  # the grabcut and watershed scenes of examples/segmentation_demo.py, at 480x640
+
+
+def grabcut_scene(h: int, w: int, s: float, rng):
+    """examples/segmentation_demo.py's GrabCut scene with its geometry
+    scaled by s: a red-ish ellipse (centre (45, 35) s, semi-axes 20 s and
+    sqrt(250) s) on green, N(0, 6) noise, clipped; its rect (18, 10, 58,
+    52) s. Returns (img [h, w, 3], truth mask, rect)."""
+    img = np.zeros((h, w, 3), np.float32)
+    img[..., 1] = 120
+    yy, xx = np.mgrid[0:h, 0:w]
+    blob = ((xx - 45 * s) ** 2 / (400 * s * s) + (yy - 35 * s) ** 2 / (250 * s * s)) < 1
+    img[blob] = [40, 40, 200]
+    img += rng.normal(0, 6.0, img.shape).astype(np.float32)
+    rect = tuple(int(round(v * s)) for v in (18, 10, 58, 52))
+    return np.clip(img, 0, 255), blob, rect
+
+
+def watershed_scene(h: int, w: int, s: float):
+    """The demo's two-basin surface and markers, scaled by s."""
+    xx = np.mgrid[0:h, 0:w][1]
+    surface = (100 - 80 * np.exp(-((xx - 25 * s) ** 2) / (200 * s * s))
+               - 80 * np.exp(-((xx - 65 * s) ** 2) / (200 * s * s))).astype(np.float32)
+    markers = np.zeros((h, w), np.int32)
+    r = [int(round(v * s)) for v in (30, 34, 20, 28, 60, 68)]
+    markers[r[0]:r[1], r[2]:r[3]] = 1
+    markers[r[0]:r[1], r[4]:r[5]] = 2
+    return surface, markers
+
+
+def _reflect(v: float, lo: float, hi: float) -> float:
+    """v folded into [lo, hi] (a path bouncing off the borders)."""
+    span = hi - lo
+    m = (v - lo) % (2 * span)
+    return lo + (m if m <= span else 2 * span - m)
+
+
+def camshift_scene(n_frames: int, s: int, rng):
+    """The demo's CamShift frames scaled by s: uniform(20, 60) noise and a
+    disc of radius 14 s at 210 moving (9 s, 4 s) px per frame from (40 s,
+    50 s); the path bounces off the frame's borders (at s = 4 the demo's
+    motion leaves a 640-px frame after 13 frames). Returns (frames,
+    centres, window (25, 35, 30, 30) s)."""
+    h, w, r = 120 * s, 160 * s, 14 * s
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames, centres = [], []
+    for t in range(n_frames):
+        cx = _reflect(40 * s + 9 * s * t, r, w - 1 - r)
+        cy = _reflect(50 * s + 4 * s * t, r, h - 1 - r)
+        f = rng.uniform(20, 60, (h, w)).astype(np.float32)
+        frames.append(np.where((xx - cx) ** 2 + (yy - cy) ** 2 < r * r, 210.0, f).astype(np.float32))
+        centres.append((cx, cy))
+    return frames, centres, tuple(v * s for v in (25, 35, 30, 30))
+
+
+def camshift_track(frames, win, dev: str):
+    """The demo's tracker: a 32-bin density histogram of frame 0's window
+    (x 255), then back-projection and CamShift over the rest."""
+    import torch
+
+    from opencv_tpu_torch.ops import camshift
+
+    f0 = torch.as_tensor(frames[0], device=dev)
+    tmpl = f0[win[1]:win[1] + win[3], win[0]:win[0] + win[2]]
+    hist = camshift.calc_hist([tmpl], [32], [(0, 256)], density=True) * 255.0
+    return camshift.track_window_sequence([[f] for f in frames[1:]], hist, [(0, 256)], win, device=dev)
+
+
+def centre_error(track, centres) -> float:
+    return float(np.mean([np.hypot(b[0][0] - c[0], b[0][1] - c[1])
+                          for (b, _), c in zip(track, centres[1:])]))
+
+
+def seg_part_a(dev: str) -> dict:
+    """examples/segmentation_demo.py's three parts at its sizes and with its
+    one generator (seed 0): GrabCut 70x90 (4 iterations), watershed 70x90,
+    CamShift over 7 frames of 120x160."""
+    from opencv_tpu_torch.ops import grabcut, watershed
+
+    rng = np.random.default_rng(0)
+    img, blob, rect = grabcut_scene(70, 90, 1.0, rng)
+    gc = grabcut.grab_cut_stats(img, rect=rect, iter_count=4, device=dev)
+    fg = gc.mask.cpu().numpy() % 2 == 1
+    iou = float((fg & blob).sum() / max((fg | blob).sum(), 1))
+    surface, markers = watershed_scene(70, 90, 1.0)
+    ws = watershed.watershed_stats(surface, markers, device=dev)
+    lab = ws.labels.cpu().numpy()
+    sizes = {k: int((lab == k).sum()) for k in (1, 2)}
+    frames, centres, win = camshift_scene(7, 1, rng)
+    track = camshift_track(frames, win, dev)
+    err = centre_error(track, centres)
+    ok = iou > 0.8 and err < 6 and sizes[1] > 500 and sizes[2] > 500
+    return dict(img=img, rect=rect, mask=gc.mask.cpu().numpy(), iou=iou, sweeps=gc.sweeps,
+                surface=surface, markers=markers, labels=lab, sizes=sizes, ws_sweeps=ws.sweeps,
+                dams=int((lab == -1).sum()), frames=frames, win=win, track=track, err=err, ok=ok)
+
+
+def seg_run_b(scenes, dev: str) -> dict:
+    """One 480x640 run of the three parts: GrabCut (4 iterations),
+    watershed, CamShift over 30 frames; seconds per part."""
+    import torch
+
+    from opencv_tpu_torch.ops import grabcut, watershed
+
+    (img, rect), (surface, markers), (frames, win) = scenes
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    out["grabcut"] = grabcut.grab_cut_stats(img, rect=rect, iter_count=4, device=dev)
+    torch.cuda.synchronize()
+    secs["grabcut"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["watershed"] = watershed.watershed_stats(surface, markers, device=dev)
+    torch.cuda.synchronize()
+    secs["watershed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["camshift"] = camshift_track(frames, win, dev)
+    secs["camshift"] = time.perf_counter() - t0
+    out["secs"] = secs
+    return out
+
+
+def phase_seg(dev: str = "cuda") -> dict:
+    """[seg] (a) examples/segmentation_demo.py at its sizes: its verdict
+    (IoU > 0.8, mean centre error < 6 px, basins > 500 px) must be OK;
+    the CPU's GrabCut mask >= 99.9 % equal, watershed labels and CamShift
+    windows equal. (b) the same scenes at 480x640 (GrabCut and watershed
+    scaled by 480/70, CamShift by 4 over 30 frames), cold, then warm
+    WARM_RUNS times, on the card; CamShift also on the CPU (windows
+    equal). GrabCut on the card against the CPU also at 120x160 (one
+    iteration): >= 99.9 % equal."""
+    import torch
+
+    from opencv_tpu_torch.ops import grabcut
+
+    t0 = time.perf_counter()
+    a = seg_part_a(dev)
+    a_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch_threads(1):
+        c = seg_part_a("cpu")
+    a_cpu_s = time.perf_counter() - t0
+    a_cmp = dict(grabcut_equal=float((a["mask"] == c["mask"]).mean()),
+                 watershed_equal=bool(np.array_equal(a["labels"], c["labels"])),
+                 camshift_windows_equal=[w for _, w in a["track"]] == [w for _, w in c["track"]])
+    print(f"[seg] (a) examples/segmentation_demo.py: grabcut IoU {a['iou']:.4f} (sweeps per cut "
+          f"{a['sweeps']}), watershed basins {a['sizes']} with {a['dams']} dam px in {a['ws_sweeps']} "
+          f"sweeps, camshift mean centre error {a['err']:.3f} px over 6 frames; verdict "
+          f"{'OK' if a['ok'] else 'DEGRADED'}; {a_s:.2f} s on the card, {a_cpu_s:.2f} s on the CPU; card "
+          f"vs CPU: grabcut mask equal on {a_cmp['grabcut_equal']:.5f}, watershed equal "
+          f"{a_cmp['watershed_equal']}, camshift windows equal {a_cmp['camshift_windows_equal']}",
+          flush=True)
+    if not a["ok"]:
+        fail(f"seg (a): the demo's verdict is DEGRADED (IoU {a['iou']}, error {a['err']}, basins {a['sizes']})")
+    if not (a_cmp["grabcut_equal"] >= 0.999 and a_cmp["watershed_equal"]
+            and a_cmp["camshift_windows_equal"]):
+        fail(f"seg (a): the card differs from the CPU: {a_cmp}")
+
+    rng = np.random.default_rng(1)
+    s = SEG_SCALE
+    img_b, blob_b, rect_b = grabcut_scene(480, 640, s, rng)
+    surface_b, markers_b = watershed_scene(480, 640, s)
+    frames_b, centres_b, win_b = camshift_scene(31, 4, rng)
+    scenes = ((img_b, rect_b), (surface_b, markers_b), (frames_b, win_b))
+    t0 = time.perf_counter()
+    seg_run_b(scenes, dev)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    outs, secs, runs = warm_runs_of(lambda: seg_run_b(scenes, dev), WARM_RUNS)
+    b = outs[0]
+    fg = b["grabcut"].mask.cpu().numpy() % 2 == 1
+    iou_b = float((fg & blob_b).sum() / max((fg | blob_b).sum(), 1))
+    lab_b = b["watershed"].labels.cpu().numpy()
+    sizes_b = {k: int((lab_b == k).sum()) for k in (1, 2)}
+    err_b = centre_error(b["camshift"], centres_b)
+    cam_cpu = camshift_track(frames_b, win_b, "cpu")
+    cam_equal = [w for _, w in b["camshift"]] == [w for _, w in cam_cpu]
+
+    img_s, _, rect_s = grabcut_scene(120, 160, 120 / 70, np.random.default_rng(2))
+    gc_card = grabcut.grab_cut_stats(img_s, rect=rect_s, iter_count=1, device=dev)
+    with torch_threads(1):
+        gc_cpu = grabcut.grab_cut_stats(img_s, rect=rect_s, iter_count=1, device="cpu")
+    small_equal = float((gc_card.mask.cpu() == gc_cpu.mask).float().mean())
+    part_s = {k: statistics.median(o["secs"][k] for o in outs) for k in b["secs"]}
+    warm = statistics.median(secs)
+    res = dict(units=1, unit="run", s_warm=warm, s_warm_runs=secs, cold_s=cold, part_s=part_s,
+               grabcut_iou=iou_b, grabcut_sweeps=b["grabcut"].sweeps,
+               grabcut_capped=b["grabcut"].capped, watershed_sweeps=b["watershed"].sweeps,
+               watershed_host_reads=b["watershed"].host_reads, basins=sizes_b,
+               dams=int((lab_b == -1).sum()), camshift_err_px=err_b, camshift_card_equals_cpu=cam_equal,
+               grabcut_120x160_card_vs_cpu_equal=small_equal, grabcut_120x160_sweeps=gc_card.sweeps,
+               example_a=dict(iou=a["iou"], sweeps=a["sweeps"], basins=a["sizes"],
+                              ws_sweeps=a["ws_sweeps"], camshift_err_px=a["err"], ok=a["ok"],
+                              card_vs_cpu=a_cmp, card_s=a_s, cpu_s=a_cpu_s),
+               launches=runs[0])
+    print(f"[seg] (b) 480x640: grabcut IoU {iou_b:.4f}, sweeps per cut {b['grabcut'].sweeps} (capped "
+          f"{b['grabcut'].capped}); watershed basins {sizes_b}, {res['dams']} dam px, "
+          f"{b['watershed'].sweeps} sweeps, {b['watershed'].host_reads} host reads; camshift mean "
+          f"centre error {err_b:.3f} px over 30 frames; seconds per part {{"
+          + ", ".join(f"{k}: {v:.3f}" for k, v in part_s.items()) + f"}} (median of {WARM_RUNS}); warm "
+          f"run {warm:.3f} s, cold {cold:.3f} s; card vs CPU: camshift windows equal {cam_equal}, "
+          f"grabcut 120x160 (1 iteration, {gc_card.sweeps} sweeps) mask equal on {small_equal:.5f}; "
+          f"launches {runs[0]}", flush=True)
+    if not (cam_equal and small_equal >= 0.999):
+        fail(f"seg (b): the card differs from the CPU (camshift windows equal {cam_equal}, grabcut "
+             f"120x160 {small_equal:.5f})")
+    if not all(np.isfinite([iou_b, err_b])):
+        fail("seg (b): a non-finite IoU or centre error")
+    return res
+
+
+def phase_profile_slice7() -> None:
+    """Where the time goes in one warm 480x640 panorama (estimate_panorama
+    and stitch_panorama of 5 views) and in one 480x640 GrabCut iteration
+    (one full min-cut)."""
+    import torch
+
+    from opencv_tpu_torch.ops import grabcut
+
+    vb, _ = pano_views(PANO_B)
+    pano_run(vb, PANO_B, "cuda")
+    profile_report("profile pano 480x640", lambda: pano_run(vb, PANO_B, "cuda"), 1, "panorama")
+    img, _, rect = grabcut_scene(480, 640, SEG_SCALE, np.random.default_rng(1))
+    sweeps = grabcut.grab_cut_stats(img, rect=rect, iter_count=1).sweeps[0]
+    torch.cuda.synchronize()
+    profile_report("profile grabcut 480x640 1 iteration",
+                   lambda: grabcut.grab_cut_stats(img, rect=rect, iter_count=1), sweeps, "sweep")
+
+
 def phase_profile_slice6(base: np.ndarray) -> None:
     """Where the time goes in one warm run of the calibration app (8 board
     views, two calibrations, the circles view) and in stabilize over 8
@@ -2063,12 +2589,16 @@ def main():
              "dbt": timed("dbt", phase_dbt),
              "lane": timed("lane", phase_lane),
              "calibapp": timed("calibapp", phase_calibapp),
-             "stab": timed("stab", phase_stab, frames[0])}
+             "stab": timed("stab", phase_stab, frames[0]),
+             "pano": timed("pano", phase_pano),
+             "qr": timed("qr", phase_qr),
+             "seg": timed("seg", phase_seg)}
     timed("profile orb", phase_profile, frames, K, "orb", 40, 4)
     timed("profile klt", phase_profile, frames, K, "klt", 40, 4)
     timed("profile geometry", phase_profile_geometry, frames, K)
     timed("profile hog", phase_profile_hog)
     timed("profile calibapp and stab", phase_profile_slice6, frames[0])
+    timed("profile pano and grabcut", phase_profile_slice7)
     kernels = []
     for key, row in rows.items():
         by_path = {p: res["launches"][key] for p, res in paths.items()}

@@ -268,18 +268,32 @@ def harris_response(
     return det - k * tr * tr
 
 
+def window_max(x: torch.Tensor, top: int, bottom: int, left: int, right: int) -> torch.Tensor:
+    """Max of x [..., H, W] over rows y+top..y+bottom and columns
+    x+left..x+right (inclusive offsets), -inf outside: one max pooling of
+    the -inf-padded image (a maximum does not round; NaN propagates)."""
+    h, w = x.shape[-2:]
+    pt, pb, pl, pr = max(-top, 0), max(bottom, 0), max(-left, 0), max(right, 0)
+    xp = F.pad(x.reshape(-1, 1, h, w), (pl, pr, pt, pb), value=-float("inf"))
+    pooled = F.max_pool2d(xp, (bottom - top + 1, right - left + 1), stride=1)
+    y0, x0 = top + pt, left + pl
+    return pooled[..., y0: y0 + h, x0: x0 + w].reshape(x.shape)
+
+
 def nms_2d(score: torch.Tensor, radius: int = 1) -> torch.Tensor:
     """(2r+1)^2 non-maximum suppression mask: `>` toward earlier
     (top-left) neighbours, `>=` toward later ones, so ties keep the
-    earlier pixel."""
-    keep = torch.ones_like(score, dtype=torch.bool)
-    for dy in range(-radius, radius + 1):
-        for dx in range(-radius, radius + 1):
-            if dy == 0 and dx == 0:
-                continue
-            nb = shift2d(score, dy, dx, fill=-float("inf"))
-            keep &= (score > nb) if (dy, dx) < (0, 0) else (score >= nb)
-    return keep
+    earlier pixel. -inf outside the image. A pixel beats every earlier
+    neighbour iff it beats their maximum, so each side is two window
+    maxima (the rows above or below, and its row's left or right part):
+    the cost does not grow with the radius."""
+    r = radius
+    if r < 1:
+        return torch.ones_like(score, dtype=torch.bool)
+    x = score if score.is_floating_point() else score.double()
+    earlier = torch.maximum(window_max(x, -r, -1, -r, r), window_max(x, 0, 0, -r, -1))
+    later = torch.maximum(window_max(x, 1, r, -r, r), window_max(x, 0, 0, 1, r))
+    return (x > earlier) & (x >= later)
 
 
 def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:

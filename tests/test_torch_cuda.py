@@ -6,10 +6,13 @@ counts), at the main path's shapes and at ragged ones, all exact; the LK
 path on the card against the same path on the CPU; and the plain PyTorch
 modules of the geometry slice (5-point, EPnP, calibration, the
 undistortion map and remap, LSH matching), of the tracking-and-lanes
-slice and of the calibration-app and video-stabilization slice (the rest
+slice, of the calibration-app and video-stabilization slice (the rest
 of imgproc, connected components, chessboard and circles-grid
-detection, ECC, videostab; K4 at videostab's 200 points) on the card
-against the CPU.
+detection, ECC, videostab; K4 at videostab's 200 points) and of the
+panorama, QR and segmentation slice (morphology, warps, blends,
+exposure, DP seams, stitch_pair with K1, QR detection and decoding, the
+push-relabel min-cut with its CUDA graph, GrabCut, watershed, histograms,
+mean shift and CamShift) on the card against the CPU.
 
 This file imports neither jax nor the JAX package, so that it runs on a
 machine that has only PyTorch:
@@ -737,3 +740,193 @@ def test_videostab_on_card_equals_cpu(card):
     motions[:, 1, 2] = 0.02 * t
     np.testing.assert_allclose(videostab.suppress_wobble(motions, device=card),
                                videostab.suppress_wobble(motions, device="cpu"), rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------ panorama, QR, segmentation
+
+
+def _texture(rng, h, w):
+    from opencv_tpu_torch.core import imgproc
+
+    return imgproc.gaussian_blur(torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32)), 5, 1.2)
+
+
+@pytest.mark.cuda
+def test_morphology_on_card_equals_cpu(card):
+    """Pooling, shifted minima and maxima, sorts: equal bits; the bilateral
+    filter within 1e-4 (the card's exp may differ by an ulp)."""
+    from opencv_tpu_torch.ops import morphology
+
+    rng = np.random.default_rng(41)
+    img = torch.from_numpy(rng.uniform(0, 255, (120, 160)).astype(np.float32))
+    g = img.to(card)
+    cross = np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]], bool)
+    for op in ("erode", "dilate", "morphology_open", "morphology_close", "morphology_gradient",
+               "top_hat", "black_hat"):
+        for k in (3, 4, (2, 5)):
+            assert torch.equal(getattr(morphology, op)(g, k).cpu(), getattr(morphology, op)(img, k))
+    for op in ("erode", "dilate"):
+        assert torch.equal(getattr(morphology, op)(g, kernel=cross).cpu(),
+                           getattr(morphology, op)(img, kernel=cross))
+    assert torch.equal(morphology.median_blur(g, 5).cpu(), morphology.median_blur(img, 5))
+    got = morphology.bilateral_filter(g, 9, 30.0, 3.0).cpu()
+    assert float((got - morphology.bilateral_filter(img, 9, 30.0, 3.0)).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_warps_blends_and_exposure_on_card_equal_cpu(card):
+    """Warps within 1e-2 (f32 trig); distance weights and seams equal;
+    blends within 1e-4; gains within 1e-5 relative (matmul sums)."""
+    from opencv_tpu_torch.stitching import blend, exposure, global_stitch, warpers
+
+    rng = np.random.default_rng(42)
+    a, b = _texture(rng, 90, 120), _texture(rng, 90, 120) + 20.0
+    for fn in (warpers.warp_cylindrical, warpers.warp_spherical):
+        assert float((fn(a.to(card), 150.0).cpu() - fn(a, 150.0)).abs().max()) <= 1e-2
+    ma = torch.zeros((90, 120), dtype=torch.bool)
+    mb = torch.zeros((90, 120), dtype=torch.bool)
+    ma[:, :70] = True
+    mb[4:, 50:] = True
+    assert torch.equal(blend.distance_weight(ma.to(card)).cpu(), blend.distance_weight(ma))
+    args = ([a, b], [ma, mb])
+    dev_args = ([a.to(card), b.to(card)], [ma.to(card), mb.to(card)])
+    assert float((blend.feather_blend(*dev_args).cpu() - blend.feather_blend(*args)).abs().max()) <= 1e-4
+    assert float((blend.multiband_blend(*dev_args, 3).cpu()
+                  - blend.multiband_blend(*args, 3)).abs().max()) <= 1e-4
+    _, gg = exposure.gain_compensate(*dev_args)
+    _, gc = exposure.gain_compensate(*args)
+    assert torch.allclose(gg.cpu(), gc, rtol=1e-5, atol=0)
+    _, mg = exposure.block_gain_compensate(*dev_args, block=16)
+    _, mc = exposure.block_gain_compensate(*args, block=16)
+    assert torch.allclose(mg.cpu(), mc, rtol=1e-5, atol=1e-6)
+    cost = torch.where(ma & mb, (a - b).abs(), 1e4)
+    assert torch.equal(global_stitch.dp_seam(cost.to(card)).cpu(), global_stitch.dp_seam(cost))
+    for got, want in zip(global_stitch.seam_masks(a.to(card), ma.to(card), b.to(card), mb.to(card)),
+                         global_stitch.seam_masks(a, ma, b, mb)):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_stitch_pair_on_card_equals_cpu(card):
+    """ORB (K1) and matching are exact; the same seed draws the same RANSAC
+    subsets; the DLT solve may differ in ulps: >= 99 % of the composite
+    within 0.5 grey levels, K1 launched once per image."""
+    from opencv_tpu_torch.stitching import stitcher
+
+    scene = _texture(np.random.default_rng(1234), 240, 400)
+    img0, img1 = scene[:, :300], scene[:, 100:]
+    cuda_ops.reset_launch_counts()
+    got = stitcher.stitch_pair(img0, img1, n_features=1000, device=card)
+    assert cuda_ops.launch_counts["fast_corners"] == 2
+    want = stitcher.stitch_pair(img0, img1, n_features=1000, device="cpu")
+    assert got.shape == want.shape
+    assert (np.abs(got - want) <= 0.5).mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_qr_on_card_equals_cpu(card):
+    """Integer box sums and one division: the scores, quads and texts are
+    the CPU's."""
+    from opencv_tpu_torch.ops import qrcode
+
+    rng = np.random.default_rng(43)
+    for version, text in ((1, "HELLO-TPU"), (3, "the quick brown fox jumps over the lazy dog 01234")):
+        img = qrcode.render_qr(qrcode.encode_qr(text, version), 5)
+        scene = np.full((480, 640), 190.0, np.float32)
+        scene[100:100 + img.shape[0], 150:150 + img.shape[1]] = img
+        scene += rng.normal(0, 6.0, scene.shape).astype(np.float32)
+        sg, sc = qrcode.finder_scores(torch.from_numpy(scene).to(card), (2, 4, 5, 12))
+        sgc, scc = qrcode.finder_scores(torch.from_numpy(scene), (2, 4, 5, 12))
+        assert torch.equal(sg.cpu(), sgc) and torch.equal(sc.cpu(), scc)
+        quad, ok = qrcode.detect_qr(scene, device=card)
+        cquad, cok = qrcode.detect_qr(scene, device="cpu")
+        assert ok and cok and np.array_equal(quad, cquad)
+        assert qrcode.decode_qr(scene, quad, device=card) == qrcode.decode_qr(scene, quad, device="cpu") == text
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,max_sweeps", [(4, 4096), (8, 4096), (8, 40)])
+def test_min_cut_on_card_equals_cpu(card, k, max_sweeps):
+    """The card replays a CUDA graph of 16 sweeps after the first 16; f32
+    adds, minima and comparisons: labels and sweep counts equal, also at a
+    cap that is not a multiple of 16."""
+    from opencv_tpu_torch.ops import graphcut
+
+    rng = np.random.default_rng(44)
+    h, w = 60, 80
+    yy, xx = np.mgrid[0:h, 0:w]
+    disc = (yy - 30) ** 2 + (xx - 40) ** 2 < 400
+    src = torch.from_numpy((rng.uniform(0, 4, (h, w)) + 6 * disc).astype(np.float32))
+    snk = torch.from_numpy((rng.uniform(0, 4, (h, w)) + 6 * ~disc).astype(np.float32))
+    caps = torch.from_numpy(rng.uniform(0.5, 3.0, (k, h, w)).astype(np.float32))
+    got = graphcut.min_cut_grid_stats(src.to(card), snk.to(card), caps.to(card), max_sweeps)
+    want = graphcut.min_cut_grid_stats(src, snk, caps, max_sweeps)
+    assert torch.equal(got.labels.cpu(), want.labels)
+    assert (got.sweeps, got.capped) == (want.sweeps, want.capped)
+
+
+@pytest.mark.cuda
+def test_grab_cut_and_watershed_on_card_equal_cpu(card):
+    """GrabCut: the moments and 3x3 inverses are library sums: >= 99.9 % of
+    the mask equal. Watershed: labels and sweeps equal."""
+    from opencv_tpu_torch.ops import grabcut, watershed
+
+    rng = np.random.default_rng(0)
+    h, w = 70, 90
+    img = np.zeros((h, w, 3), np.float32)
+    img[..., 1] = 120
+    yy, xx = np.mgrid[0:h, 0:w]
+    img[((xx - 45) ** 2 / 400 + (yy - 35) ** 2 / 250) < 1] = [40, 40, 200]
+    img = np.clip(img + rng.normal(0, 6.0, img.shape).astype(np.float32), 0, 255)
+    got = grabcut.grab_cut_stats(img, rect=(18, 10, 58, 52), iter_count=2, device=card)
+    want = grabcut.grab_cut_stats(img, rect=(18, 10, 58, 52), iter_count=2, device="cpu")
+    assert float((got.mask.cpu() == want.mask).float().mean()) >= 0.999
+    surface = (100 - 80 * np.exp(-((xx - 25) ** 2) / 200) - 80 * np.exp(-((xx - 65) ** 2) / 200))
+    markers = np.zeros((h, w), np.int32)
+    markers[30:34, 20:28] = 1
+    markers[30:34, 60:68] = 2
+    for im in (surface.astype(np.float32), img):
+        wg = watershed.watershed_stats(im, markers, device=card)
+        wc = watershed.watershed_stats(im, markers, device="cpu")
+        assert torch.equal(wg.labels.cpu(), wc.labels) and wg.sweeps == wc.sweeps
+
+
+@pytest.mark.cuda
+def test_camshift_on_card_equals_cpu(card):
+    """Integer histogram counts and XLA-order prefix sums: histograms,
+    back-projections, mean-shift windows and CamShift boxes equal."""
+    from opencv_tpu_torch.ops import camshift
+
+    rng = np.random.default_rng(45)
+    h, w = 480, 640
+    yy, xx = np.mgrid[0:h, 0:w]
+    frame = np.where((xx - 300) ** 2 + (yy - 200) ** 2 < 56 ** 2, 210.0,
+                     rng.uniform(20, 60, (h, w))).astype(np.float32)
+    f = torch.from_numpy(frame)
+    hist = camshift.calc_hist([f[150:250, 250:350]], [32], [(0, 256)], density=True) * 255.0
+    hg = camshift.calc_hist([f.to(card)[150:250, 250:350]], [32], [(0, 256)], density=True) * 255.0
+    assert torch.equal(hg.cpu(), hist)
+    pc = camshift.calc_back_project([f], hist, [(0, 256)])
+    pg = camshift.calc_back_project([f.to(card)], hg, [(0, 256)])
+    assert torch.equal(pg.cpu(), pc)
+    for win in ((240, 150, 120, 120), (10, 10, 100, 100), (400, 300, 200, 150)):
+        assert camshift.mean_shift(pg, win) == camshift.mean_shift(pc, win)
+        (cg, sg, ag), wg = camshift.cam_shift(pg, win)
+        (cc, sc, ac), wc = camshift.cam_shift(pc, win)
+        assert wg == wc and (*cg, *sg, ag) == (*cc, *sc, ac)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [1, 3, 7])
+def test_nms_2d_on_card_equals_cpu(card, radius):
+    """The pooled NMS: integer ties, ±inf and NaN give the CPU's mask."""
+    from opencv_tpu_torch.core import imgproc
+
+    rng = np.random.default_rng(46)
+    s = rng.integers(0, 4, (480, 640)).astype(np.float32)
+    flat = s.reshape(-1)
+    flat[rng.random(flat.shape) < 0.05] = -np.inf
+    flat[rng.random(flat.shape) < 0.02] = np.inf
+    flat[rng.random(flat.shape) < 0.02] = np.nan
+    t = torch.from_numpy(s)
+    assert torch.equal(imgproc.nms_2d(t.to(card), radius).cpu(), imgproc.nms_2d(t, radius))

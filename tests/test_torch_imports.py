@@ -31,9 +31,9 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 
 def test_every_slice_module_is_checked():
     """The import checks below walk the whole package; the LK slice's,
-    the geometry slice's, the tracking-and-lanes slice's and the
-    calibration-app and video-stabilization slice's modules are among
-    them."""
+    the geometry slice's, the tracking-and-lanes slice's, the
+    calibration-app and video-stabilization slice's and the panorama, QR
+    and segmentation slice's modules are among them."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for mod in ("ops/lk.py", "ops/gftt.py", "ops/cuda/lk_sample.py", "core/pyramid.py",
                 "slam/vo.py", "geometry/five_point.py", "geometry/epnp.py", "geometry/ap3p.py",
@@ -41,7 +41,11 @@ def test_every_slice_module_is_checked():
                 "optim/levmarq.py", "optim/minimize.py", "ops/lsh.py", "ops/kalman.py",
                 "tbd/assignment.py", "tbd/tracker.py", "tbd/detection_based.py", "ops/hog.py",
                 "ops/edges.py", "ops/hough.py", "core/imgproc.py", "ops/ccomp.py",
-                "ops/chessboard.py", "ops/ecc.py", "ops/videostab.py"):
+                "ops/chessboard.py", "ops/ecc.py", "ops/videostab.py", "ops/morphology.py",
+                "stitching/__init__.py", "stitching/warpers.py", "stitching/blend.py",
+                "stitching/exposure.py", "stitching/stitcher.py", "stitching/global_stitch.py",
+                "ops/qrcode.py", "ops/graphcut.py", "ops/grabcut.py", "ops/watershed.py",
+                "ops/camshift.py"):
         assert f"opencv_tpu_torch/{mod}" in names
 
 
@@ -50,16 +54,20 @@ NUMPY_ENTRY_POINTS = ("calibrate_camera", "stereo_calibrate", "calibrate_fisheye
                       "Tracker", "DetectionBasedTracker", "detect_multi_scale",
                       "connected_components", "detect_blobs", "find_chessboard_corners",
                       "find_circles_grid", "find_transform_ecc", "estimate_global_motion", "estimate_motions",
-                      "stabilize", "deblur_weiner_gaussian", "suppress_wobble")
+                      "stabilize", "deblur_weiner_gaussian", "suppress_wobble",
+                      "estimate_panorama", "refine_rotations_ba", "stitch_panorama", "stitch_pair", "detect_qr", "decode_qr",
+                      "grab_cut", "watershed", "track_window_sequence")
 
 
 def _numpy_entry_points():
     """{name: call} of every entry point that takes numpy and makes
     tensors, each called with no device."""
     from opencv_tpu_torch.geometry import calibration
-    from opencv_tpu_torch.ops import ccomp, chessboard, ecc, hog, lsh, videostab
+    from opencv_tpu_torch.ops import (camshift, ccomp, chessboard, ecc, grabcut, hog, lsh, qrcode,
+                                      videostab, watershed)
     from opencv_tpu_torch.optim import minimize
     from opencv_tpu_torch.slam import loop_closure
+    from opencv_tpu_torch.stitching import global_stitch, stitcher
     from opencv_tpu_torch.tbd import DetectionBasedTracker, Tracker
 
     obj = np.zeros((2, 6, 3), np.float32)
@@ -101,6 +109,20 @@ def _numpy_entry_points():
         "deblur_weiner_gaussian": lambda: videostab.deblur_weiner_gaussian(
             np.zeros((16, 16), np.float32), 3.0),
         "suppress_wobble": lambda: videostab.suppress_wobble(np.zeros((8, 2, 3), np.float32)),
+        "estimate_panorama": lambda: global_stitch.estimate_panorama([np.zeros((16, 16), np.float32)] * 2),
+        "refine_rotations_ba": lambda: global_stitch.refine_rotations_ba(
+            np.stack([np.eye(3)] * 2), 100.0, [(0, 1, xy, xy, np.ones(4, np.float32))], iters=1),
+        "stitch_panorama": lambda: global_stitch.stitch_panorama([np.zeros((16, 16), np.float32)] * 2),
+        "stitch_pair": lambda: stitcher.stitch_pair(np.zeros((16, 16), np.float32),
+                                                    np.zeros((16, 16), np.float32)),
+        "detect_qr": lambda: qrcode.detect_qr(np.zeros((32, 32), np.float32)),
+        "decode_qr": lambda: qrcode.decode_qr(np.zeros((32, 32), np.float32),
+                                              np.zeros((4, 2), np.float32)),
+        "grab_cut": lambda: grabcut.grab_cut(np.zeros((8, 8, 3), np.float32), rect=(1, 1, 4, 4)),
+        "watershed": lambda: watershed.watershed(np.zeros((8, 8), np.float32),
+                                                 np.zeros((8, 8), np.int32)),
+        "track_window_sequence": lambda: camshift.track_window_sequence(
+            [[np.zeros((8, 8), np.float32)]], np.ones(4, np.float32), [(0, 256)], (0, 0, 4, 4)),
     }
 
 
