@@ -9,8 +9,10 @@ Phases:
   3. kernels vs plain on the card, at the shapes the main paths give them:
      K1 FAST score + NMS at the 8 ORB levels of a 480x640 frame (timed as
      the one multi-level launch ORB makes, and per level through the
-     one-level entry), K2 FAST score for rings 16/12/8, K3 streaming 2-NN
-     Hamming at 2000 x 128000 with ties and ~10% invalid rows, K4 LK window
+     one-level entry), K2 FAST score for rings 16/12/8 (and at the shapes
+     of [feat2]: BRISK's four sqrt(2) levels, rings 12 and 8 at 480x640),
+     K3 streaming 2-NN Hamming at 2000 x 128000 x 256 bits and at 2000 x
+     32000 x 512 bits, with ties and ~10% invalid rows, K4 LK window
      sampling at its three sites on the 480x640 level (templates C=3 win
      21, patches C=1 win 48 at integer origins, polish C=1 win 21; N = 2000
      and 512 (the LK path's), 32 (DetectionBasedTracker's) and 200
@@ -21,7 +23,7 @@ Phases:
      device times by CUDA events (kernel, plain version, one PyTorch
      library call where one computes the same function) beside the bound,
      and the first designs' times as labelled constants (FIRST_DESIGN_MS);
-  4. the fifteen paths, each with the launch counts reset just before each
+  4. the eighteen paths, each with the launch counts reset just before each
      warm run and read just after it:
      a. ORB VO: VisualOdometry.process_sequence on a seeded 480x640
         synthetic sequence at bench_config5's engine config
@@ -104,13 +106,28 @@ Phases:
         quads and texts equal;
      o. seg: examples/segmentation_demo.py (GrabCut, watershed, CamShift)
         at its sizes with its verdict, and at 480x640; card against CPU;
+     p. feat2: AGAST (four kinds), BRISK and AKAZE (matched 0<->8, the
+        share within 2 px of the true epipolar line), MSER on frames 0
+        and 8, and frame 24's AKAZE rows against those of frames 0-15
+        through knn_match_auto (K3 at 512 bits, equal to the dense
+        matcher); K2 and K3 launched; card against CPU;
+     q. stereo: BM, SGBM, BP and CSBP on a rectified 480x640 pair (8, 24
+        and 40 px, 64 disparities): bad-pixel rates within the JAX tests'
+        bounds or at the JAX package's own figure (JAX_FIGURES, from
+        tools/jax_slice8_figures.py), SGBM reprojected to 3D; card
+        against CPU at 120x160;
+     r. flow: Farneback, TV-L1 and Brox on frame 0 and frame 0 moved by
+        (3, 2) px and 0.5 deg (endpoint errors, interior medians within
+        the JAX tests' bounds), interpolate_frames at t = 0.5, BTV-L1
+        super-resolution of 8 frames of 240x320 with Farneback flows;
+        card against CPU at 240x320;
   5. profile: torch.profiler over frames 40-44 of steady tracking of the
      ORB engine and of the klt engine, one two-view
      pair, one calibrate_camera of 20 views, one warm HOG-mode frame
      (detect and track), one warm calibration-app run, stabilize over
-     8 frames, one 480x640 panorama and one 480x640 GrabCut iteration
-     (device busy share, kernels per unit, top kernels, top host
-     operations).
+     8 frames, one 480x640 panorama, one 480x640 GrabCut iteration, one
+     480x640 SGBM disparity and one 480x640 TV-L1 pair (device busy
+     share, kernels per unit, top kernels, top host operations).
 Prints a JSON line of path results (each with its unit and unit count),
 a JSON line of kernels, the card line, and last {"ok": true, "device":
 {...}}. Exits non-zero on any failure, and without a card.
@@ -440,8 +457,94 @@ def phase_kernels(frame0: np.ndarray, rates: dict) -> dict:
           f"{lib_ms:.4f} ms", flush=True)
     del sq, st
     torch.cuda.empty_cache()
+    phase_kernels_slice8(lvl0, rates, rows)
     rows.update(phase_lk_kernels(lvl0, rates))
     return rows
+
+
+def phase_kernels_slice8(lvl0, rates: dict, rows: dict) -> None:
+    """K2 at the shapes of the [feat2] path: BRISK's four sqrt(2) levels of
+    a 480x640 frame (ring 16, arc 9: AGAST 9_16) and rings 12/7 and 8/5
+    (AGAST 7_12s and 5_8) at 480x640; K3 at 512 bits (2000 x 32 000, with
+    ties and ~10 % invalid rows). All exact against the plain versions,
+    timed beside their bounds; the figures join the rows of K2 and K3."""
+    import torch
+
+    from opencv_tpu_torch.core import pyramid
+    from opencv_tpu_torch.ops.cuda import fast_kernel, knn
+
+    dev = lvl0.device
+
+    def k2_case(levels, ring, arc):
+        err = 0.0
+        for lvl in levels:
+            a = fast_kernel.fast_score_cuda(lvl, arc, ring)
+            b = fast_kernel.fast_score_plain(lvl, arc, ring)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err((a, b)))
+            if not torch.equal(a, b):
+                fail(f"K2 differs from its plain version at {tuple(lvl.shape)} (ring {ring}, arc "
+                     f"{arc}): {(a != b).sum().item()} values")
+        ms = sum(device_time_ms(lambda lvl=lvl: fast_kernel.fast_score_cuda(lvl, arc, ring))
+                 for lvl in levels)
+        plain = sum(device_time_ms(lambda lvl=lvl: fast_kernel.fast_score_plain(lvl, arc, ring), calls=3)
+                    for lvl in levels)
+        npx = sum(lvl.numel() for lvl in levels)
+        b_s, o_s = npx * 8 / HBM_BYTES_PER_S, npx * fast_score_ops(ring, arc) / rates["fp32_add"]
+        return err, ms, plain, max(b_s, o_s) * 1e3, "bytes" if b_s >= o_s else "operations"
+
+    brisk_levels = list(pyramid.build_pyramid(lvl0, 4, 2 ** 0.5).levels)
+    row = rows["fast_score"]
+    for key, levels, ring, arc in (("brisk_levels", brisk_levels, 16, 9), ("ring12", [lvl0], 12, 7),
+                                   ("ring8", [lvl0], 8, 5)):
+        err, ms, plain, bound, by = k2_case(levels, ring, arc)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row.update({f"{key}_ms": ms, f"{key}_plain_ms": plain, f"{key}_bound_ms": bound,
+                    f"{key}_bound_by": by, f"{key}_shapes": [tuple(x.shape) for x in levels]})
+        print(f"[K2] {key} ({', '.join(f'{x.shape[0]}x{x.shape[1]}' for x in levels)}; ring {ring}, arc "
+              f"{arc}): exact; kernel {ms:.4f} ms ({len(levels)} launches), plain {plain:.4f} ms, bound "
+              f"{bound:.5f} ms ({by})", flush=True)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    nq, nt = 2000, 32000
+    lo, hi = -(2 ** 31), 2 ** 31
+    train = torch.randint(lo, hi, (nt, 16), generator=g, device=dev, dtype=torch.int64).to(torch.int32)
+    train[16000:18000] = train[0:2000]  # duplicate rows: exact ties across splits
+    query = torch.randint(lo, hi, (nq, 16), generator=g, device=dev, dtype=torch.int64).to(torch.int32)
+    query[:1000] = train[torch.arange(0, 2000, 2, device=dev)]
+    query[:1000, 0] ^= 1
+    valid = torch.rand(nt, generator=g, device=dev) > 0.1
+    got = knn.knn2_hamming_cuda(query, train, valid)
+    want = knn.knn2_hamming_plain(query, train, valid)
+    torch.cuda.synchronize()
+    err = max_abs_err(*zip(got, want))
+    for nm, a, b in zip(("d1", "d2", "i1"), got, want):
+        if not torch.equal(a, b):
+            fail(f"K3 at 512 bits: {nm} differs from its plain version: {(a != b).sum().item()} queries")
+    ms = device_time_ms(lambda: knn.knn2_hamming_cuda(query, train, valid), calls=5)
+    plain = device_time_ms(lambda: knn.knn2_hamming_plain(query, train, valid), calls=2)
+    sq = knn.signed_descriptors(query).to(torch.bfloat16)
+    st = knn.signed_descriptors(train).to(torch.bfloat16)
+    big = torch.where(valid, 0.0, 2048.0).to(torch.bfloat16)
+
+    def library():
+        return torch.topk((512.0 - sq @ st.T) * 0.5 + big, 2, dim=1, largest=False)
+
+    lib_ms = device_time_ms(library, calls=3)
+    n_valid = int(valid.sum())
+    b_s = ((nq + nt) * 64 + nt + nq * 12) / HBM_BYTES_PER_S
+    o_s = nq * n_valid * 16 / rates["popc"]  # one popcount per word: twice 256 bits'
+    row = rows["knn2_hamming"]
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row.update(ms_512=ms, plain_ms_512=plain, library_ms_512=lib_ms, bound_ms_512=max(b_s, o_s) * 1e3,
+               bound_by_512="bytes" if b_s >= o_s else "operations", shapes_512=[(nq, 16), (nt, 16)])
+    print(f"[K3] 512 bits, {nq} x {nt}: exact on d1/d2/i1 ({int((got[0] == got[1]).sum())} queries with "
+          f"d1 == d2, {nt - n_valid} invalid rows); kernel {ms:.4f} ms, plain {plain:.4f} ms, bf16 "
+          f"matmul+topk {lib_ms:.4f} ms, bound {max(b_s, o_s) * 1e3:.4f} ms "
+          f"({row['bound_by_512']})", flush=True)
+    del sq, st
+    torch.cuda.empty_cache()
 
 
 def lk_points(n: int, h: int, w: int, win: int, seed: int, odd: bool = True) -> np.ndarray:
@@ -2432,6 +2535,587 @@ def phase_seg(dev: str = "cuda") -> dict:
     return res
 
 
+# ------------------------------------------------------------ detectors, stereo and flow slice
+
+
+FEAT2_PAIR = (0, 8)  # frames matched 0 <-> 8, as the two-view path
+MAP_FRAMES = 16  # AKAZE rows of frames 0-15: 32 000, above the streaming threshold
+MAP_QUERY = 24
+AGAST_KINDS = ("9_16", "7_12s", "5_8", "7_12d")
+
+
+def pose_gt(b: int):
+    """(R, t) of frame b against frame 0 (make_sequence's motion, as
+    phase_two_view takes it)."""
+    from opencv_tpu_torch.slam.vo import _np_rodrigues
+
+    R = _np_rodrigues(np.array([0.0, np.deg2rad(0.15 * b), 0.0]))
+    return R, -R @ np.array([0.12 * b, 0.0, 0.03 * b])
+
+
+def epipolar_px(xy0: np.ndarray, xy1: np.ndarray, K: np.ndarray, R, t) -> np.ndarray:
+    """Distance in px of each xy1 from the epipolar line of its xy0 under
+    the true motion (F = K^-T [t]x R K^-1)."""
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    Ki = np.linalg.inv(K.astype(np.float64))
+    F = Ki.T @ tx @ R @ Ki
+    h0 = np.concatenate([xy0, np.ones((len(xy0), 1))], 1)
+    h1 = np.concatenate([xy1, np.ones((len(xy1), 1))], 1)
+    lines = h0 @ F.T
+    return np.abs((h1 * lines).sum(1)) / np.linalg.norm(lines[:, :2], axis=1)
+
+
+def feat2_detect(img, dev, with_mser: bool = True) -> dict:
+    """AGAST (four kinds, 2000), BRISK (2000, threshold 30, 4 levels), AKAZE
+    (2000, 8 levels) and MSER (dark and bright) on one frame, as a user
+    calls them."""
+    from opencv_tpu_torch.ops import agast, akaze, brisk, mser
+
+    out = {f"agast_{k}": agast.agast_detect(img, 2000, 10.0, k, device=dev) for k in AGAST_KINDS}
+    out["brisk"] = brisk.brisk_detect_and_compute(img, 2000, 30.0, 4, device=dev)
+    out["akaze"] = akaze.akaze_detect_and_compute(img, 2000, n_levels=8, device=dev)
+    if with_mser:
+        out["mser_dark"] = mser.mser_detect(img, device=dev)
+        out["mser_bright"] = mser.mser_detect(img, dark_on_bright=False, device=dev)
+    return out
+
+
+MAP_CFG = dict(ratio=0.8, cross_check=False, max_distance=512.0)
+
+
+def feat2_run(imgs, map_desc, map_valid, query_img, dev) -> dict:
+    """[feat2]'s work: detection on both frames, BRISK and AKAZE matched
+    0 <-> 8 (ratio 0.8, cross-check), the query frame's AKAZE rows against
+    the map through knn_match_auto."""
+    from opencv_tpu_torch.core.config import MatchConfig
+    from opencv_tpu_torch.ops import akaze, matching
+
+    det = [feat2_detect(x, dev) for x in imgs]
+    matches = {}
+    for name in ("brisk", "akaze"):
+        (k0, d0), (k1, d1) = det[0][name], det[1][name]
+        matches[name] = matching.knn_match(d0, d1, k0.valid, k1.valid, MatchConfig(ratio=0.8))
+    qk, qd = akaze.akaze_detect_and_compute(query_img, 2000, n_levels=8, device=dev)
+    streamed = matching.knn_match_auto(qd, map_desc, qk.valid, map_valid, MatchConfig(**MAP_CFG))
+    return dict(det=det, matches=matches, query=(qk, qd), streamed=streamed)
+
+
+def same_tensors(*pairs) -> bool:
+    import torch
+
+    return all(torch.equal(a.cpu(), b.cpu()) for a, b in pairs)
+
+
+def phase_feat2(frames, K, card: str, dev: str = "cuda") -> dict:
+    """[feat2] the remaining feature detectors on frames 0 and 8 of the
+    scene: (a) AGAST, all four kinds; (b) BRISK and AKAZE, each matched
+    0 <-> 8 by knn_match (ratio 0.8, cross-check) with the share of matches
+    within 2 px of the true epipolar line; (c) MSER dark and bright; (d)
+    the AKAZE rows of frames 0-15 (32 000) queried by frame 24 through
+    knn_match_auto: K3 at 512 bits, equal to the dense matcher with
+    cross-check off. Cold, then warm WARM_RUNS times (unit: a frame: the
+    pair and the query frame). K2 and K3 must launch. Card against CPU on
+    frames 0 and 8 (MSER on their top-left 120x160)."""
+    import torch
+
+    from opencv_tpu_torch.core.config import MatchConfig
+    from opencv_tpu_torch.ops import akaze, matching, mser
+
+    imgs = [torch.from_numpy(np.ascontiguousarray(frames[i])).to(dev) for i in FEAT2_PAIR]
+    t0 = time.perf_counter()
+    descs, valids = [], []
+    for f in range(MAP_FRAMES):
+        kp, d = akaze.akaze_detect_and_compute(
+            torch.from_numpy(np.ascontiguousarray(frames[f])).to(dev), 2000, n_levels=8, device=dev)
+        descs.append(d)
+        valids.append(kp.valid)
+    map_desc, map_valid = torch.cat(descs), torch.cat(valids)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    query = torch.from_numpy(np.ascontiguousarray(frames[MAP_QUERY])).to(dev)
+
+    def run():
+        return feat2_run(imgs, map_desc, map_valid, query, dev)
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    outs, secs, runs = warm_runs_of(run, WARM_RUNS)
+    o, counts = outs[0], runs[0]
+    if counts["fast_score"] <= 0 or counts["knn2_hamming"] <= 0:
+        fail(f"[feat2] K2 and K3 must launch on the path: {counts}")
+
+    R, t = pose_gt(FEAT2_PAIR[1])
+    match = {}
+    for name, m in o["matches"].items():
+        (k0, _), (k1, _) = o["det"][0][name], o["det"][1][name]
+        ok = m.valid.cpu().numpy()
+        xy0 = k0.xy.cpu().numpy()[m.query_idx.cpu().numpy()][ok]
+        xy1 = k1.xy.cpu().numpy()[m.train_idx.cpu().numpy()][ok]
+        d = epipolar_px(xy0, xy1, K, R, t)
+        match[name] = dict(keypoints=[int(o["det"][i][name][0].valid.sum()) for i in (0, 1)],
+                           matches=int(ok.sum()), within_2px=float((d < 2.0).mean()) if len(d) else 0.0)
+    agast_n = {k: [int(o["det"][i][f"agast_{k}"].valid.sum()) for i in (0, 1)] for k in AGAST_KINDS}
+    mser_n = {k: [int(o["det"][i][f"mser_{k}"].valid.sum()) for i in (0, 1)] for k in ("dark", "bright")}
+
+    # (d) the streamed matches against the dense matcher, cross-check off
+    qk, qd = o["query"]
+    cfg = MatchConfig(**MAP_CFG)
+    dense = matching.knn_match(qd, map_desc, qk.valid, map_valid, cfg)
+    s = o["streamed"]
+    sv = s.valid.cpu().numpy()
+    map_equal = bool(np.array_equal(sv, dense.valid.cpu().numpy()) and np.array_equal(
+        s.train_idx.cpu().numpy()[sv], dense.train_idx.cpu().numpy()[sv]))
+    stream_ms = device_time_ms(lambda: matching.knn_match_auto(qd, map_desc, qk.valid, map_valid, cfg),
+                               calls=3)
+    dense_ms = device_time_ms(lambda: matching.knn_match(qd, map_desc, qk.valid, map_valid, cfg),
+                              calls=3)
+
+    # card against CPU on frames 0 and 8
+    t0 = time.perf_counter()
+    with torch_threads(1):
+        cpu = [feat2_detect(x.cpu(), "cpu", with_mser=False) for x in imgs]  # MSER: a crop below
+    cpu_s = time.perf_counter() - t0
+    cmp = {"agast_keypoints_equal": [], "brisk_keypoints_equal": [], "akaze_keypoints_equal": [],
+           "brisk_bits_equal": [], "akaze_bits_equal": []}
+    for g, c in zip(o["det"], cpu):
+        cmp["agast_keypoints_equal"].append(all(
+            same_tensors((g[f"agast_{k}"].valid, c[f"agast_{k}"].valid), (g[f"agast_{k}"].xy, c[f"agast_{k}"].xy))
+            for k in AGAST_KINDS))
+        for name in ("brisk", "akaze"):
+            (gk, gd), (ck, cd) = g[name], c[name]
+            cmp[f"{name}_keypoints_equal"].append(same_tensors((gk.valid, ck.valid), (gk.xy, ck.xy),
+                                                               (gk.level, ck.level)))
+            v = ck.valid.cpu()
+            same = matching.unpack_bits(gd).cpu() == matching.unpack_bits(cd)
+            cmp[f"{name}_bits_equal"].append(float(same[v].float().mean()) if v.any() else 1.0)
+    crop = imgs[0][:120, :160]
+    cmp["mser_120x160_equal"] = []
+    for dark in (True, False):
+        g = mser.mser_detect(crop, dark_on_bright=dark, device=dev)
+        c = mser.mser_detect(crop.cpu(), dark_on_bright=dark, device="cpu")
+        cmp["mser_120x160_equal"].append(same_tensors((g.valid, c.valid), (g.area, c.area),
+                                                      (g.bbox, c.bbox)))
+
+    warm = statistics.median(secs)
+    units = len(FEAT2_PAIR) + 1
+    res = dict(units=units, unit="frame", warm_s=warm, warm_s_runs=secs, cold_s=cold,
+               frames_per_s=units / warm, map_rows=int(map_desc.shape[0]),
+               map_valid=int(map_valid.sum()), map_build_s=map_s, agast_keypoints=agast_n,
+               mser_regions=mser_n, matching=match, map_matches=int(sv.sum()),
+               map_equals_dense=map_equal, map_stream_ms=stream_ms, map_dense_ms=dense_ms,
+               cpu_s=cpu_s, card_vs_cpu=cmp, launches=counts, card=card)
+    print(f"[feat2] frames {FEAT2_PAIR[0]},{FEAT2_PAIR[1]} 480x640 | {card}: AGAST keypoints "
+          f"(threshold 10) {agast_n}; BRISK keypoints {match['brisk']['keypoints']}, "
+          f"{match['brisk']['matches']} matches 0<->8, {100 * match['brisk']['within_2px']:.2f} % within "
+          f"2 px of the true epipolar line; AKAZE keypoints {match['akaze']['keypoints']}, "
+          f"{match['akaze']['matches']} matches, {100 * match['akaze']['within_2px']:.2f} % within 2 px; "
+          f"MSER regions {mser_n}", flush=True)
+    print(f"[feat2] (d) map of {map_desc.shape[0]} AKAZE rows (frames 0-{MAP_FRAMES - 1}, "
+          f"{int(map_valid.sum())} valid, built in {map_s:.2f} s) queried by frame {MAP_QUERY}: "
+          f"{int(sv.sum())} matches through knn_match_auto (K3, 512 bits), equal to the dense matcher: "
+          f"{map_equal}; streamed {stream_ms:.4f} ms, dense {dense_ms:.4f} ms | {card}", flush=True)
+    print(f"[feat2] warm {warm:.3f} s per run of {units} frames ({units / warm:.2f} frames/s, median "
+          f"of {WARM_RUNS}, runs {[round(x, 3) for x in secs]}), cold {cold:.3f} s | {card}; launches "
+          f"{counts} (K2 {counts['fast_score']}, K3 {counts['knn2_hamming']}); card vs CPU ({cpu_s:.2f} "
+          f"s on the CPU): {cmp}", flush=True)
+    if not map_equal:
+        fail("[feat2] (d) the streamed map matches differ from the dense matcher's")
+    if not all(all(cmp[k]) for k in ("agast_keypoints_equal", "brisk_keypoints_equal",
+                                     "akaze_keypoints_equal", "mser_120x160_equal")):
+        fail(f"[feat2] the card differs from the CPU: {cmp}")
+    if min(cmp["brisk_bits_equal"] + cmp["akaze_bits_equal"]) < 0.995:
+        fail(f"[feat2] descriptor bits differ from the CPU's beyond 0.5 %: {cmp}")
+    if min(m["matches"] for m in match.values()) < 50:
+        fail(f"[feat2] too few matches 0<->8: {match}")
+    return res
+
+
+STEREO_DISP = (8, 24, 40)  # background, block A, block B (px)
+STEREO_ND = 64
+STEREO_BOUNDS = {"bp": 0.12, "csbp": 0.15}  # tests/test_stereo_bp.py's bad-pixel bounds
+# The JAX package's own bad-pixel rates on stereo_pair() (480x640, 64
+# disparities), its flow figures on flow_pair() and Brox's own spread on
+# that pair's FLOW_CROP, taken on the CPU by tools/jax_slice8_figures.py;
+# printed beside the port's.
+JAX_FIGURES = {
+    "stereo": {"bm": 0.007907, "sgbm": 0.03256, "bp": 2.8e-05, "csbp": 0.0},
+    "flow": {
+        "farneback": {"epe_px": 0.249639, "median_offset_px": [-0.141791, -0.016158]},
+        "tvl1": {"epe_px": 0.025735, "median_offset_px": [-0.003598, 3e-06]},
+        "brox": {"epe_px": 0.505522, "median_offset_px": [-0.315726, -0.031649]},
+    },
+    # Brox on FLOW_CROP of flow_pair(), (mean, max) |flow difference| px
+    "brox_scene_crop": {"jax_jit_vs_default": [0.3919775187969208, 34.208858489990234],
+                        "port_cpu_one_ulp": [0.3206680417060852, 33.76567077636719]},
+}
+
+
+def stereo_pair(h: int = 480, w: int = 640, disp=STEREO_DISP, seed: int = 0):
+    """tests/test_stereo_bp.py's generator, widened: a seeded random
+    texture smoothed along rows is the right image; the left image takes
+    right[y, x - d(y, x)] with d = disp[0] in the background and disp[1],
+    disp[2] in two blocks. Returns (left, right, true disparity)."""
+    rng = np.random.default_rng(seed)
+    right = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    k = np.array([0.25, 0.5, 0.25])
+    right = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, right).astype(np.float32)
+    gt = np.full((h, w), disp[0], np.int32)
+    gt[h * 120 // 480: h * 300 // 480, w * 140 // 640: w * 340 // 640] = disp[1]
+    gt[h * 260 // 480: h * 420 // 480, w * 400 // 640: w * 600 // 640] = disp[2]
+    xs = np.arange(w)
+    left = np.stack([right[y, np.clip(xs - gt[y], 0, w - 1)] for y in range(h)]).astype(np.float32)
+    return left, right, gt
+
+
+def bad_pixel_rate(pred: np.ndarray, gt: np.ndarray, border: int = 12, tol: float = 1.0) -> float:
+    """Share of pixels off the truth by more than tol, `border` px inside
+    (tests/test_stereo_bp.py's measure; invalid pixels count as bad)."""
+    p = pred[border:-border, border:-border]
+    return float(np.mean(~(np.abs(p - gt[border:-border, border:-border]) <= tol)))
+
+
+def stereo_methods(left, right, nd: int, dev) -> dict:
+    """{method: (disparity, seconds)}: BM (block 9), SGBM (8 paths, speckle
+    filter), BP (6 iterations, 3 levels), CSBP (6 planes, 8 iterations),
+    the parameters of tests/test_stereo_bp.py."""
+    import torch
+
+    from opencv_tpu_torch.ops import sgbm, stereo, stereo_bp
+
+    calls = {
+        "bm": lambda: stereo.compute_disparity_bm(left, right, nd, block_size=9, device=dev),
+        "sgbm": lambda: sgbm.compute_disparity_sgbm(left, right, sgbm.SGBMConfig(num_disparities=nd),
+                                                    device=dev),
+        "bp": lambda: stereo_bp.stereo_bp(left, right, nd, n_iters=6, n_levels=3, device=dev),
+        "csbp": lambda: stereo_bp.stereo_csbp(left, right, nd, nr_plane=6, n_iters=8, device=dev),
+    }
+    out = {}
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        d = fn()
+        if d.is_cuda:
+            torch.cuda.synchronize()
+        out[name] = (d, time.perf_counter() - t0)
+    return out
+
+
+def phase_stereo(card: str, dev: str = "cuda") -> dict:
+    """[stereo] a rectified 480x640 pair (stereo_pair: background 8 px,
+    blocks at 24 and 40 px, 64 disparities): BM, SGBM, BP and CSBP, cold
+    then warm WARM_RUNS times (unit: a pair); bad-pixel rates (> 1 px, 12 px
+    border) within tests/test_stereo_bp.py's bounds (BP < 0.12, CSBP <
+    0.15, SGBM <= BM + 0.02) or at the JAX package's own figure; SGBM
+    reprojected to 3D (median depth per region against f B / d). Card
+    against CPU on a 120x160 pair (disparities 2/6/10 of 16) for all four,
+    and BM at full size."""
+    import torch
+
+    from opencv_tpu_torch.ops import stereo
+
+    left, right, gt = stereo_pair()
+    lt, rt = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+    t0 = time.perf_counter()
+    stereo_methods(lt, rt, STEREO_ND, dev)
+    cold = time.perf_counter() - t0
+    outs, secs, runs = warm_runs_of(lambda: stereo_methods(lt, rt, STEREO_ND, dev), WARM_RUNS)
+    o = outs[0]
+    rates = {k: bad_pixel_rate(d.cpu().numpy(), gt) for k, (d, _) in o.items()}
+    method_s = {k: statistics.median(run[k][1] for run in outs) for k in o}
+
+    f, base = 0.82 * 640, 0.1
+    pts = stereo.reproject_to_3d(o["sgbm"][0], f, base, 320.0, 240.0).cpu().numpy()
+    depth = {}
+    for i, d in enumerate(STEREO_DISP):
+        region = (gt == d) & (pts[..., 2] > 0)
+        depth[d] = (float(np.median(pts[..., 2][region])), f * base / d)
+
+    sl, sr, sgt = stereo_pair(120, 160, (2, 6, 10))
+    small = {k: v[0].cpu() for k, v in stereo_methods(torch.from_numpy(sl).to(dev),
+                                                      torch.from_numpy(sr).to(dev), 16, dev).items()}
+    t0 = time.perf_counter()
+    with torch_threads(1):
+        small_cpu = {k: v[0] for k, v in stereo_methods(torch.from_numpy(sl), torch.from_numpy(sr),
+                                                        16, "cpu").items()}
+        bm_cpu = stereo.compute_disparity_bm(left, right, STEREO_ND, block_size=9, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same = {k: float((torch.nan_to_num(small[k], -2.0) == torch.nan_to_num(small_cpu[k], -2.0))
+                     .float().mean()) for k in small}  # BM's parabola leaves NaN at some edges
+    bm_full_equal = bool(torch.equal(torch.nan_to_num(o["bm"][0].cpu(), -2.0),
+                                     torch.nan_to_num(bm_cpu, -2.0)))
+    warm = statistics.median(secs)
+    res = dict(units=1, unit="pair", warm_s=warm, warm_s_runs=secs, cold_s=cold, pairs_per_s=1.0 / warm,
+               method_s=method_s, bad_pixel_rate=rates, jax_bad_pixel_rate=JAX_FIGURES.get("stereo"),
+               sgbm_depth_median_vs_truth=depth, card_vs_cpu_120x160_equal=same,
+               bm_480x640_card_equals_cpu=bm_full_equal, cpu_s=cpu_s, launches=runs[0], card=card)
+    print(f"[stereo] 480x640, {STEREO_ND} disparities (background {STEREO_DISP[0]} px, blocks "
+          f"{STEREO_DISP[1]} and {STEREO_DISP[2]} px) | {card}: bad-pixel rate (> 1 px) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rates.items())
+          + f" (the JAX package's on this input: {JAX_FIGURES.get('stereo')}); seconds per method "
+          + ", ".join(f"{k} {v:.4f}" for k, v in method_s.items())
+          + f" (median of {WARM_RUNS}); warm {warm:.3f} s a pair, cold {cold:.3f} s | {card}", flush=True)
+    print(f"[stereo] SGBM reprojected (f {f:.1f}, B {base}): median depth per region (measured, "
+          f"f B / d) {depth}; card vs CPU at 120x160: equal share {same}, BM at 480x640 equal "
+          f"{bm_full_equal} ({cpu_s:.2f} s on the CPU); launches {runs[0]}", flush=True)
+    jax_rates = JAX_FIGURES.get("stereo", {})
+    checks = {"bp": rates["bp"] < STEREO_BOUNDS["bp"], "csbp": rates["csbp"] < STEREO_BOUNDS["csbp"],
+              "sgbm": rates["sgbm"] <= rates["bm"] + 0.02}
+    for k, ok in checks.items():
+        if not ok and not (k in jax_rates and abs(rates[k] - jax_rates[k]) <= 0.005):
+            fail(f"[stereo] {k} bad-pixel rate {rates[k]:.4f} is outside the JAX tests' bound and "
+                 f"away from the JAX package's own figure {jax_rates.get(k)}")
+    if not (bm_full_equal and same["bm"] == 1.0 and same["sgbm"] >= 0.995
+            and min(same["bp"], same["csbp"]) >= 0.99):
+        fail(f"[stereo] the card differs from the CPU: {same}, BM full size equal {bm_full_equal}")
+    for d, (got, want) in depth.items():
+        if not abs(got - want) <= 0.05 * want:
+            fail(f"[stereo] SGBM depth of the {d}-px region {got:.4f} is not within 5 % of {want:.4f}")
+    return res
+
+
+FLOW_SHIFT = (3.0, 2.0)  # px, with a rotation of FLOW_ROT_DEG about the centre
+FLOW_ROT_DEG = 0.5
+FLOW_MEDIAN_BOUNDS = {"farneback": 0.5, "tvl1": 0.4, "brox": 0.5}  # the JAX tests' bounds
+SR_FRAMES = 8
+FLOW_CROP = (slice(0, 240), slice(0, 320))  # of flow_pair(): held card against CPU
+BROX_SPREAD_FACTOR = 1.5  # tests/test_torch_brox.py's rule against JAX's own spread
+
+
+def bilinear_np(img: np.ndarray, x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """img sampled at (x, y), bilinear, clamped at the edges (f64)."""
+    h, w = img.shape
+    x = np.clip(x, 0, w - 1)
+    y = np.clip(y, 0, h - 1)
+    x0 = np.clip(np.floor(x).astype(int), 0, w - 2)
+    y0 = np.clip(np.floor(y).astype(int), 0, h - 2)
+    fx, fy = x - x0, y - y0
+    im = img.astype(np.float64)
+    top = im[y0, x0] * (1 - fx) + im[y0, x0 + 1] * fx
+    bot = im[y0 + 1, x0] * (1 - fx) + im[y0 + 1, x0 + 1] * fx
+    return top * (1 - fy) + bot * fy
+
+
+def moved_by(img: np.ndarray, frac: float = 1.0):
+    """(img moved by frac of the known field, the field's flow [H, W, 2]):
+    a point p goes to R(p - c) + c + t (rotation frac * FLOW_ROT_DEG about
+    the centre, translation frac * FLOW_SHIFT)."""
+    h, w = img.shape
+    a = np.deg2rad(FLOW_ROT_DEG * frac)
+    ca, sa = np.cos(a), np.sin(a)
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    tx, ty = FLOW_SHIFT[0] * frac, FLOW_SHIFT[1] * frac
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    flow = np.stack([ca * (xx - cx) - sa * (yy - cy) + cx + tx - xx,
+                     sa * (xx - cx) + ca * (yy - cy) + cy + ty - yy], -1)
+    u, v = xx - cx - tx, yy - cy - ty  # the inverse map of each output pixel
+    moved = bilinear_np(img, ca * u + sa * v + cx, -sa * u + ca * v + cy)
+    return moved.astype(np.float32), flow.astype(np.float32)
+
+
+def flow_pair(frame0: np.ndarray):
+    """(frame 0, frame 0 moved by the field, the field, frame 0 moved by
+    half of it: the true frame at t = 0.5)."""
+    nxt, flow = moved_by(frame0)
+    mid, _ = moved_by(frame0, 0.5)
+    return frame0.astype(np.float32), nxt, flow, mid
+
+
+def sr_frames(hi: np.ndarray, dev, seed: int = 0):
+    """SR_FRAMES low-res frames: hi moved by seeded subpixel shifts (U(-1, 1)
+    low-res px, the first unmoved), then blurred and decimated 2x (the
+    observation model of ops/superres.py)."""
+    import torch
+
+    from opencv_tpu_torch.ops import superres
+
+    rng = np.random.default_rng(seed)
+    shifts = np.concatenate([[[0.0, 0.0]], rng.uniform(-1, 1, (SR_FRAMES - 1, 2))])
+    h, w = hi.shape
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    moved = np.stack([bilinear_np(hi, xx + 2 * dx, yy + 2 * dy) for dx, dy in shifts]).astype(np.float32)
+    lo = superres._downsample(torch.from_numpy(moved).to(dev), 2)
+    return lo.contiguous(), shifts
+
+
+def flow_texture_pair(h: int = 240, w: int = 320, seed: int = 0):
+    """tests/test_torch_flow.py's texture at 240x320 (seeded noise blurred
+    7x7, sigma 2) and itself rolled by (2, 3) px: texture everywhere,
+    beside the scene crop FLOW_CROP, whose black ground leaves Brox's
+    smoothness term alone to decide much of the flow."""
+    import torch
+
+    from opencv_tpu_torch.core import imgproc
+
+    rng = np.random.default_rng(seed)
+    img = imgproc.gaussian_blur(torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32)),
+                                7, 2.0).numpy()
+    return img, np.roll(img, (2, 3), axis=(0, 1))
+
+
+def flow_run(a, b, lo, dev) -> dict:
+    """[flow]'s work: Farneback, TV-L1 and Brox at their defaults on the
+    pair, interpolate_frames at t = 0.5, and BTV-L1 super-resolution of the
+    low-res frames with Farneback flows to and from frame 0."""
+    import torch
+
+    from opencv_tpu_torch.ops import brox, farneback, interpolate, superres, tvl1
+
+    out, secs = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        if out[name].is_cuda:
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+
+    timed("farneback", lambda: farneback.calc_optical_flow_farneback(a, b, device=dev))
+    timed("tvl1", lambda: tvl1.calc_optical_flow_tvl1(a, b, device=dev))
+    timed("brox", lambda: brox.brox_flow(a, b, device=dev))
+    timed("interpolate", lambda: interpolate.interpolate_frames(a, b, 0.5, device=dev))
+
+    def sr():
+        # frame k (p) = frame 0 (p + flows[k](p)): the flow from frame k to frame 0
+        fl = torch.stack([farneback.calc_optical_flow_farneback(x, lo[0], device=dev) for x in lo])
+        bf = torch.stack([farneback.calc_optical_flow_farneback(lo[0], x, device=dev) for x in lo])
+        return superres.btv_l1_superres_flow(lo, fl, bf, device=dev)
+
+    timed("superres", sr)
+    out["secs"] = secs
+    return out
+
+
+def flow_parts(a, b, dev) -> dict:
+    """The three flows and the frame interpolated at t = 0.5 of one pair."""
+    from opencv_tpu_torch.ops import brox, farneback, interpolate, tvl1
+
+    return {"farneback": farneback.calc_optical_flow_farneback(a, b, device=dev),
+            "tvl1": tvl1.calc_optical_flow_tvl1(a, b, device=dev),
+            "brox": brox.brox_flow(a, b, device=dev),
+            "interpolate": interpolate.interpolate_frames(a, b, 0.5, device=dev)}
+
+
+def phase_flow(frame0: np.ndarray, card: str, dev: str = "cuda") -> dict:
+    """[flow] frame 0 of the scene and frame 0 moved by a known smooth
+    field (FLOW_SHIFT plus FLOW_ROT_DEG about the centre): Farneback, TV-L1
+    and Brox at their defaults (mean endpoint error 16 px inside the
+    border; interior medians against the field's, within the JAX tests'
+    bounds 0.5 / 0.4 / 0.5 px), interpolate_frames at t = 0.5 against the
+    true middle frame, and BTV-L1 super-resolution (8 frames of 240x320 to
+    480x640, Farneback flows) against frame 0 beside bilinear upscaling.
+    Cold, then warm WARM_RUNS times (unit: a pair; a frame for
+    super-resolution). Card against CPU on the pair's top-left 240x320
+    (FLOW_CROP) and on flow_texture_pair (240x320): the three flows and the
+    interpolated frame, 0.05 px / grey at most and 1e-3 on average (Brox
+    on the texture 8 px inside the border, as tests/test_torch_brox.py).
+    Brox on the scene crop is held to BROX_SPREAD_FACTOR times the JAX
+    function's own spread there (compiled whole against its default run,
+    JAX_FIGURES) where it misses 1e-3 / 0.05: a one-ulp nudge of the input
+    moves it as far (tools/jax_slice8_figures.py)."""
+    import torch
+
+    from opencv_tpu_torch.core import imgproc
+
+    prev, nxt, field, mid = flow_pair(frame0)
+    a, b = torch.from_numpy(prev).to(dev), torch.from_numpy(nxt).to(dev)
+    lo, _ = sr_frames(prev, dev)
+    t0 = time.perf_counter()
+    flow_run(a, b, lo, dev)
+    cold = time.perf_counter() - t0
+    outs, secs, runs = warm_runs_of(lambda: flow_run(a, b, lo, dev), WARM_RUNS)
+    o = outs[0]
+    inner = (slice(16, -16), slice(16, -16))
+    acc = {}
+    for k in ("farneback", "tvl1", "brox"):
+        fl = o[k].cpu().numpy()
+        epe = float(np.linalg.norm(fl[inner] - field[inner], axis=-1).mean())
+        med = [float(np.median(fl[inner][..., i]) - np.median(field[inner][..., i])) for i in (0, 1)]
+        acc[k] = dict(epe_px=epe, median_offset_px=med)
+    interp_err = float(np.abs(o["interpolate"].cpu().numpy() - mid)[inner].mean())
+    blend_err = float(np.abs(0.5 * (prev + nxt) - mid)[inner].mean())
+    sr_err = float(np.abs(o["superres"].cpu().numpy() - prev)[inner].mean())
+    up = imgproc.resize_bilinear(lo[0], 480, 640).cpu().numpy()
+    bil_err = float(np.abs(up - prev)[inner].mean())
+
+    pairs = {"scene": [np.ascontiguousarray(x[FLOW_CROP]) for x in (prev, nxt)],
+             "texture": flow_texture_pair()}
+    vs_cpu, cpu_s = {}, 0.0
+    for where, (x, y) in pairs.items():
+        on_card = flow_parts(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev), dev)
+        t0 = time.perf_counter()
+        with torch_threads(1):
+            cpu = flow_parts(torch.from_numpy(x), torch.from_numpy(y), "cpu")
+        cpu_s += time.perf_counter() - t0
+        for k, c in cpu.items():
+            d = (on_card[k].cpu() - c).abs()
+            if k == "brox" and where == "texture":
+                d = d[8:-8, 8:-8]
+            vs_cpu[f"{k}_{where}"] = (float(d.mean()), float(d.max()))
+    spread = JAX_FIGURES["brox_scene_crop"]
+    part_s = {k: statistics.median(run["secs"][k] for run in outs) for k in o["secs"]}
+    warm = statistics.median(secs)
+    res = dict(units=1, unit="pair", warm_s=warm, warm_s_runs=secs, cold_s=cold, part_s=part_s,
+               pairs_per_s=1.0 / warm, accuracy=acc, interpolate_err=interp_err,
+               blend_err=blend_err, superres_err=sr_err, bilinear_err=bil_err,
+               superres_frames_per_s=SR_FRAMES / part_s["superres"],
+               jax_figures=JAX_FIGURES.get("flow"), card_vs_cpu=vs_cpu, cpu_s=cpu_s,
+               launches=runs[0], card=card)
+    print(f"[flow] 480x640, frame 0 moved by ({FLOW_SHIFT[0]}, {FLOW_SHIFT[1]}) px and "
+          f"{FLOW_ROT_DEG} deg about the centre | {card}: "
+          + "; ".join(f"{k} mean endpoint error {v['epe_px']:.4f} px, interior median offsets "
+                      f"({v['median_offset_px'][0]:+.4f}, {v['median_offset_px'][1]:+.4f}) px"
+                      for k, v in acc.items())
+          + f" (the JAX package's on this input: {JAX_FIGURES.get('flow')})", flush=True)
+    print(f"[flow] interpolate_frames t=0.5: mean error {interp_err:.4f} grey against the true middle "
+          f"frame (a 50/50 blend: {blend_err:.4f}); BTV-L1 {SR_FRAMES} x 240x320 -> 480x640: mean "
+          f"error {sr_err:.4f} grey (bilinear upscaling {bil_err:.4f}) | {card}", flush=True)
+    print(f"[flow] seconds per part " + ", ".join(f"{k} {v:.4f}" for k, v in part_s.items())
+          + f" (median of {WARM_RUNS}); warm run {warm:.3f} s, cold {cold:.3f} s | {card}; card vs "
+          f"CPU on the scene's top-left 240x320 and on a 240x320 texture (mean, max) {vs_cpu} "
+          f"({cpu_s:.2f} s on the CPU); Brox's own spread on the scene crop (mean, max): {spread}; "
+          f"launches {runs[0]}", flush=True)
+    for k, v in acc.items():
+        if not max(abs(x) for x in v["median_offset_px"]) < FLOW_MEDIAN_BOUNDS[k]:
+            fail(f"[flow] {k}: interior median offsets {v['median_offset_px']} beyond "
+                 f"{FLOW_MEDIAN_BOUNDS[k]} px")
+    if not (interp_err < blend_err and sr_err < bil_err):
+        fail(f"[flow] interpolation ({interp_err} against {blend_err}) or super-resolution "
+             f"({sr_err} against {bil_err}) does no better than its baseline")
+    for k, (mean, mx) in vs_cpu.items():
+        if mean <= 1e-3 and mx <= 0.05:
+            continue
+        jm, jx = spread["jax_jit_vs_default"]
+        if k == "brox_scene" and mean <= BROX_SPREAD_FACTOR * jm and mx <= BROX_SPREAD_FACTOR * jx:
+            print(f"[flow] brox on the scene crop: card vs CPU (mean {mean}, max {mx}) misses 1e-3 / "
+                  f"0.05 px, within {BROX_SPREAD_FACTOR} x the JAX function's own spread ({jm}, {jx})",
+                  flush=True)
+            continue
+        fail(f"[flow] {k} on the card differs from the CPU: mean {mean}, max {mx}")
+    return res
+
+
+def phase_profile_slice8() -> None:
+    """Where the time goes in one warm SGBM disparity and one warm TV-L1
+    pair at 480x640."""
+    import torch
+
+    from opencv_tpu_torch.ops import sgbm, tvl1
+
+    left, right, _ = stereo_pair()
+    lt, rt = torch.from_numpy(left).to("cuda"), torch.from_numpy(right).to("cuda")
+    cfg = sgbm.SGBMConfig(num_disparities=STEREO_ND)
+    sgbm.compute_disparity_sgbm(lt, rt, cfg)
+    torch.cuda.synchronize()
+    profile_report("profile sgbm 480x640", lambda: sgbm.compute_disparity_sgbm(lt, rt, cfg), 1, "pair")
+    frames, _, _ = make_sequence(1)
+    prev, nxt, _, _ = flow_pair(frames[0])
+    a, b = torch.from_numpy(prev).to("cuda"), torch.from_numpy(nxt).to("cuda")
+    tvl1.calc_optical_flow_tvl1(a, b)
+    torch.cuda.synchronize()
+    profile_report("profile tvl1 480x640", lambda: tvl1.calc_optical_flow_tvl1(a, b), 1, "pair")
+
+
 def phase_profile_slice7() -> None:
     """Where the time goes in one warm 480x640 panorama (estimate_panorama
     and stitch_panorama of 5 views) and in one 480x640 GrabCut iteration
@@ -2592,19 +3276,23 @@ def main():
              "stab": timed("stab", phase_stab, frames[0]),
              "pano": timed("pano", phase_pano),
              "qr": timed("qr", phase_qr),
-             "seg": timed("seg", phase_seg)}
+             "seg": timed("seg", phase_seg),
+             "feat2": timed("feat2", phase_feat2, frames, K, card),
+             "stereo": timed("stereo", phase_stereo, card),
+             "flow": timed("flow", phase_flow, frames[0], card)}
     timed("profile orb", phase_profile, frames, K, "orb", 40, 4)
     timed("profile klt", phase_profile, frames, K, "klt", 40, 4)
     timed("profile geometry", phase_profile_geometry, frames, K)
     timed("profile hog", phase_profile_hog)
     timed("profile calibapp and stab", phase_profile_slice6, frames[0])
     timed("profile pano and grabcut", phase_profile_slice7)
+    timed("profile sgbm and tvl1", phase_profile_slice8)
     kernels = []
     for key, row in rows.items():
         by_path = {p: res["launches"][key] for p, res in paths.items()}
         kernels.append(dict(row, launches=sum(by_path.values()), launches_by_path=by_path,
                             launches_per_unit={p: by_path[p] / paths[p]["units"] for p in paths},
-                            on_main_path=key not in ("fast_score", "lk_sample_clamp")))
+                            on_main_path=key != "lk_sample_clamp"))
     print(json.dumps({"paths": paths}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -36,8 +36,10 @@ class Labels(NamedTuple):
 
 
 def connected_components_stats(mask: torch.Tensor, connectivity: int = 8) -> Labels:
-    """`connected_components` with the sweeps and host reads it took."""
-    h, w = mask.shape
+    """`connected_components` with the sweeps and host reads it took. A
+    mask [..., H, W] labels each image on its own (the labels are the same
+    as one image at a time: extra sweeps change nothing)."""
+    h, w = mask.shape[-2:]
     dev = mask.device
     big = h * w + 2
     idx = torch.arange(1, h * w + 1, dtype=torch.int32, device=dev).reshape(h, w)

@@ -26,6 +26,7 @@ from opencv_tpu_torch.core import imgproc, pyramid as pyr_mod
 from opencv_tpu_torch.core.config import ORBConfig
 from opencv_tpu_torch.core.types import KeyPoints, masked_top_k
 from opencv_tpu_torch.ops import fast as fast_mod
+from opencv_tpu_torch.ops.matching import pack_bits
 
 HALF_PATCH = 15  # orientation patch radius
 PATTERN_BITS = 256
@@ -84,17 +85,6 @@ def ic_angles(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return amap[yi, xi]
 
 
-def _pack_bits(t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
-    """[N, 256] comparisons -> int32 [N, 8], bit k of word i = pair 32i+k."""
-    bits = (t1 < t2).to(torch.int64).reshape(-1, 8, 32)
-    weights = torch.ones(32, dtype=torch.int64, device=bits.device) << torch.arange(
-        32, dtype=torch.int64, device=bits.device
-    )
-    words = (bits * weights).sum(dim=2)  # [0, 2^32)
-    words = words - ((words >> 31) << 32)  # two's-complement wrap into int32
-    return words.to(torch.int32)
-
-
 def brief_descriptors(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     """Rotated 256-bit BRIEF: each tap is rotated by the keypoint angle,
     rounded to the nearest pixel of the blurred level, and pairs compared
@@ -113,7 +103,7 @@ def brief_descriptors(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tens
     xi = (cx + rx).clamp(0, w - 1)
     yi = (cy + ry).clamp(0, h - 1)
     vals = blurred.reshape(-1)[yi * w + xi]  # [N, 512]
-    return _pack_bits(vals[:, :PATTERN_BITS], vals[:, PATTERN_BITS:])
+    return pack_bits(vals[:, :PATTERN_BITS] < vals[:, PATTERN_BITS:])
 
 
 def subpixel_refine(score: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:

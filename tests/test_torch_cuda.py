@@ -12,7 +12,9 @@ detection, ECC, videostab; K4 at videostab's 200 points) and of the
 panorama, QR and segmentation slice (morphology, warps, blends,
 exposure, DP seams, stitch_pair with K1, QR detection and decoding, the
 push-relabel min-cut with its CUDA graph, GrabCut, watershed, histograms,
-mean shift and CamShift) on the card against the CPU.
+mean shift and CamShift) on the card against the CPU; K3 at 512 bits, K2
+at BRISK's level shapes, and AGAST, BRISK, AKAZE, SGBM and TV-L1 on the
+card against the CPU.
 
 This file imports neither jax nor the JAX package, so that it runs on a
 machine that has only PyTorch:
@@ -30,6 +32,7 @@ from opencv_tpu_torch.ops import cuda as cuda_ops
 from opencv_tpu_torch.core.config import LKConfig
 from opencv_tpu_torch.ops import lk
 from opencv_tpu_torch.ops.cuda import fast_kernel, knn, lk_sample
+from opencv_tpu_torch.ops.matching import unpack_bits
 
 
 @pytest.fixture()
@@ -96,10 +99,10 @@ def test_fast_levels_kernel_equals_plain(card, name):
         assert torch.equal(s_k, s_1) and torch.equal(n_k, n_1)
 
 
-def _tied_set(rng, nq, nt):
-    t = rng.integers(0, 2 ** 32, size=(nt, 8), dtype=np.uint64).astype(np.uint32)
+def _tied_set(rng, nq, nt, words=8):
+    t = rng.integers(0, 2 ** 32, size=(nt, words), dtype=np.uint64).astype(np.uint32)
     t[nt // 2: nt // 2 + nt // 8] = t[: nt // 8]  # exact ties across splits
-    q = rng.integers(0, 2 ** 32, size=(nq, 8), dtype=np.uint64).astype(np.uint32)
+    q = rng.integers(0, 2 ** 32, size=(nq, words), dtype=np.uint64).astype(np.uint32)
     q[: nq // 2] = t[rng.integers(0, nt // 8, nq // 2)]
     q[: nq // 2, 0] ^= np.uint32(1)
     valid = rng.random(nt) > 0.1
@@ -117,6 +120,21 @@ def test_knn2_kernel_equals_plain(card, nq, nt):
         for a, b in zip(got, want):
             assert torch.equal(a, b)
     assert bool((got[0] == got[1]).any())  # ties present
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nt", [(2000, 32000), (37, 1000), (300, 257)])
+def test_knn2_kernel_at_512_bits_equals_plain(card, nq, nt):
+    """K3's 4-chunk instantiation (BRISK's and AKAZE's [N, 16] words)."""
+    q, t, v = (a.to(card) for a in _tied_set(np.random.default_rng(8), nq, nt, words=16))
+    for valid in (v, None):
+        got = knn.knn2_hamming_cuda(q, t, valid)
+        want = knn.knn2_hamming_plain(q, t, valid)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert bool((got[0] == got[1]).any())
+    with pytest.raises(ValueError, match="8 or 16"):
+        knn.knn2_hamming_cuda(q[:, :12].contiguous(), t[:, :12].contiguous())
 
 
 def _lk_points(rng, n, h, w, win):
@@ -930,3 +948,99 @@ def test_nms_2d_on_card_equals_cpu(card, radius):
     flat[rng.random(flat.shape) < 0.02] = np.nan
     t = torch.from_numpy(s)
     assert torch.equal(imgproc.nms_2d(t.to(card), radius).cpu(), imgproc.nms_2d(t, radius))
+
+
+@pytest.mark.cuda
+def test_fast_score_kernel_at_brisk_levels_equals_plain(card):
+    """K2 on BRISK's four sqrt(2) levels of a 480x640 frame (AGAST 9_16)."""
+    from opencv_tpu_torch.core import pyramid
+
+    rng = np.random.default_rng(47)
+    img = torch.from_numpy(_img(rng, 480, 640)).to(card)
+    for lvl in pyramid.build_pyramid(img, 4, 2 ** 0.5).levels:
+        for ring, arc in ((16, 9), (12, 7), (8, 5)):
+            assert torch.equal(fast_kernel.fast_score_cuda(lvl, arc, ring),
+                               fast_kernel.fast_score_plain(lvl, arc, ring))
+
+
+def _scene(rng, h=96, w=128):
+    from opencv_tpu_torch.core import imgproc
+
+    img = torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32))
+    img = imgproc.gaussian_blur(img, 5, 1.5) * 0.6 + 50.0
+    img[10:30, 12:40] = 220.0
+    img[50:80, 60:100] = 30.0
+    return torch.round(img)
+
+
+@pytest.mark.cuda
+def test_agast_and_brisk_on_card_equal_cpu(card):
+    """Scores are exact; keypoints equal slot for slot; descriptors equal
+    but for near ties of the pattern samples (<= 0.5 % of the bits)."""
+    from opencv_tpu_torch.ops import agast, brisk
+
+    img = _scene(np.random.default_rng(48))
+    for kind in agast.KINDS:
+        assert torch.equal(agast.agast_score(img.to(card), kind).cpu(), agast.agast_score(img, kind))
+    cuda_ops.reset_launch_counts()
+    kc, dc = brisk.brisk_detect_and_compute(img, 128, 20.0, device=card)
+    assert cuda_ops.launch_counts["fast_score"] == 4
+    kp, dp = brisk.brisk_detect_and_compute(img, 128, 20.0, device="cpu")
+    assert torch.equal(kc.valid.cpu(), kp.valid) and torch.equal(kc.xy.cpu(), kp.xy)
+    v = kp.valid
+    assert int(v.sum()) > 20
+    assert float((unpack_bits(dc.cpu()) != unpack_bits(dp))[v].float().mean()) <= 0.005
+
+
+@pytest.mark.cuda
+def test_akaze_on_card_equals_cpu(card):
+    """k, the scale space and the responses are equal bits (separable sums
+    in one order, device-tensor divisors, k's quantile as separate products
+    and a sum); keypoints equal slot for slot; descriptors equal but for
+    near ties of the cell means (<= 0.5 % of the bits)."""
+    from opencv_tpu_torch.ops import akaze
+
+    img = _scene(np.random.default_rng(51))
+    gray = lambda x: x / torch.tensor(255.0, device=x.device)
+    assert torch.equal(akaze.contrast_k(gray(img.to(card))).cpu(), akaze.contrast_k(gray(img)))
+    sc, sig = akaze.nonlinear_scale_space(img.to(card), n_levels=6)
+    sp, _ = akaze.nonlinear_scale_space(img, n_levels=6)
+    assert torch.equal(sc.cpu(), sp)
+    assert torch.equal(akaze.hessian_response(sc, sig).cpu(), akaze.hessian_response(sp, sig))
+    kc, dc = akaze.akaze_detect_and_compute(img, 96, threshold=1e-4, n_levels=6, device=card)
+    kp, dp = akaze.akaze_detect_and_compute(img, 96, threshold=1e-4, n_levels=6, device="cpu")
+    assert torch.equal(kc.valid.cpu(), kp.valid) and torch.equal(kc.xy.cpu(), kp.xy)
+    assert torch.equal(kc.level.cpu(), kp.level)
+    v = kp.valid
+    assert int(v.sum()) > 20
+    assert float((unpack_bits(dc.cpu()) != unpack_bits(dp))[v].float().mean()) <= 0.005
+
+
+@pytest.mark.cuda
+def test_sgbm_on_card_equals_cpu(card):
+    from opencv_tpu_torch.ops import sgbm
+
+    rng = np.random.default_rng(49)
+    right = rng.uniform(0, 255, (64, 96)).astype(np.float32)
+    left = np.roll(right, 6, axis=1)
+    left[20:40, 30:60] = np.roll(right, 11, axis=1)[20:40, 30:60]
+    cfg = sgbm.SGBMConfig(num_disparities=16)
+    got = sgbm.compute_disparity_sgbm(left, right, cfg, device=card).cpu()
+    want = sgbm.compute_disparity_sgbm(left, right, cfg, device="cpu")
+    assert float((got == want).float().mean()) >= 0.995
+    assert float((got - want).abs().max()) <= 1.0
+
+
+@pytest.mark.cuda
+def test_tvl1_on_card_equals_cpu(card):
+    from opencv_tpu_torch.core import imgproc
+    from opencv_tpu_torch.ops import tvl1
+
+    rng = np.random.default_rng(50)
+    a = imgproc.gaussian_blur(torch.from_numpy(rng.uniform(0, 255, (64, 96)).astype(np.float32)),
+                              7, 2.0)
+    b = torch.roll(a, (2, 3), dims=(0, 1))
+    got = tvl1.calc_optical_flow_tvl1(a, b, n_levels=3, device=card).cpu()
+    want = tvl1.calc_optical_flow_tvl1(a, b, n_levels=3, device="cpu")
+    d = (got - want).abs()
+    assert float(d.mean()) <= 1e-3 and float(d.max()) <= 0.05

@@ -32,8 +32,9 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 def test_every_slice_module_is_checked():
     """The import checks below walk the whole package; the LK slice's,
     the geometry slice's, the tracking-and-lanes slice's, the
-    calibration-app and video-stabilization slice's and the panorama, QR
-    and segmentation slice's modules are among them."""
+    calibration-app and video-stabilization slice's, the panorama, QR
+    and segmentation slice's and the detectors, stereo and dense-flow
+    slice's modules are among them."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for mod in ("ops/lk.py", "ops/gftt.py", "ops/cuda/lk_sample.py", "core/pyramid.py",
                 "slam/vo.py", "geometry/five_point.py", "geometry/epnp.py", "geometry/ap3p.py",
@@ -45,7 +46,9 @@ def test_every_slice_module_is_checked():
                 "stitching/__init__.py", "stitching/warpers.py", "stitching/blend.py",
                 "stitching/exposure.py", "stitching/stitcher.py", "stitching/global_stitch.py",
                 "ops/qrcode.py", "ops/graphcut.py", "ops/grabcut.py", "ops/watershed.py",
-                "ops/camshift.py"):
+                "ops/camshift.py", "ops/agast.py", "ops/brisk.py", "ops/akaze.py", "ops/mser.py",
+                "ops/stereo.py", "ops/sgbm.py", "ops/stereo_bp.py", "ops/farneback.py",
+                "ops/tvl1.py", "ops/brox.py", "ops/interpolate.py", "ops/superres.py"):
         assert f"opencv_tpu_torch/{mod}" in names
 
 
@@ -56,15 +59,20 @@ NUMPY_ENTRY_POINTS = ("calibrate_camera", "stereo_calibrate", "calibrate_fisheye
                       "find_circles_grid", "find_transform_ecc", "estimate_global_motion", "estimate_motions",
                       "stabilize", "deblur_weiner_gaussian", "suppress_wobble",
                       "estimate_panorama", "refine_rotations_ba", "stitch_panorama", "stitch_pair", "detect_qr", "decode_qr",
-                      "grab_cut", "watershed", "track_window_sequence")
+                      "grab_cut", "watershed", "track_window_sequence",
+                      "agast_detect", "brisk_detect_and_compute", "akaze_detect_and_compute",
+                      "mser_detect", "compute_disparity_bm", "compute_disparity_sgbm", "stereo_bp",
+                      "stereo_csbp", "calc_optical_flow_farneback", "calc_optical_flow_tvl1",
+                      "brox_flow", "interpolate_frames", "btv_l1_superres", "btv_l1_superres_flow")
 
 
 def _numpy_entry_points():
     """{name: call} of every entry point that takes numpy and makes
     tensors, each called with no device."""
     from opencv_tpu_torch.geometry import calibration
-    from opencv_tpu_torch.ops import (camshift, ccomp, chessboard, ecc, grabcut, hog, lsh, qrcode,
-                                      videostab, watershed)
+    from opencv_tpu_torch.ops import (agast, akaze, brisk, brox, camshift, ccomp, chessboard, ecc,
+                                      farneback, grabcut, hog, interpolate, lsh, mser, qrcode, sgbm,
+                                      stereo, stereo_bp, superres, tvl1, videostab, watershed)
     from opencv_tpu_torch.optim import minimize
     from opencv_tpu_torch.slam import loop_closure
     from opencv_tpu_torch.stitching import global_stitch, stitcher
@@ -79,6 +87,7 @@ def _numpy_entry_points():
     desc = np.zeros((4, 8), np.uint32)
     xy = np.zeros((4, 2), np.float32)
     ok = np.ones(4, bool)
+    frame = np.zeros((32, 32), np.float32)
     return {
         "calibrate_camera": lambda: calibration.calibrate_camera(obj, img, refine_iters=1),
         "stereo_calibrate": lambda: calibration.stereo_calibrate(obj, img, img, K, dist, K, dist),
@@ -123,6 +132,21 @@ def _numpy_entry_points():
                                                  np.zeros((8, 8), np.int32)),
         "track_window_sequence": lambda: camshift.track_window_sequence(
             [[np.zeros((8, 8), np.float32)]], np.ones(4, np.float32), [(0, 256)], (0, 0, 4, 4)),
+        "agast_detect": lambda: agast.agast_detect(frame, 4),
+        "brisk_detect_and_compute": lambda: brisk.brisk_detect_and_compute(frame, 8),
+        "akaze_detect_and_compute": lambda: akaze.akaze_detect_and_compute(frame, 8),
+        "mser_detect": lambda: mser.mser_detect(frame),
+        "compute_disparity_bm": lambda: stereo.compute_disparity_bm(frame, frame, 8),
+        "compute_disparity_sgbm": lambda: sgbm.compute_disparity_sgbm(frame, frame),
+        "stereo_bp": lambda: stereo_bp.stereo_bp(frame, frame, 8),
+        "stereo_csbp": lambda: stereo_bp.stereo_csbp(frame, frame, 8),
+        "calc_optical_flow_farneback": lambda: farneback.calc_optical_flow_farneback(frame, frame),
+        "calc_optical_flow_tvl1": lambda: tvl1.calc_optical_flow_tvl1(frame, frame),
+        "brox_flow": lambda: brox.brox_flow(frame, frame),
+        "interpolate_frames": lambda: interpolate.interpolate_frames(frame, frame),
+        "btv_l1_superres": lambda: superres.btv_l1_superres(frame[None], np.zeros((1, 2))),
+        "btv_l1_superres_flow": lambda: superres.btv_l1_superres_flow(
+            frame[None], np.zeros((1, 32, 32, 2)), np.zeros((1, 32, 32, 2))),
     }
 
 
