@@ -23,7 +23,7 @@ Phases:
      device times by CUDA events (kernel, plain version, one PyTorch
      library call where one computes the same function) beside the bound,
      and the first designs' times as labelled constants (FIRST_DESIGN_MS);
-  4. the eighteen paths, each with the launch counts reset just before each
+  4. the twenty-one paths, each with the launch counts reset just before each
      warm run and read just after it:
      a. ORB VO: VisualOdometry.process_sequence on a seeded 480x640
         synthetic sequence at bench_config5's engine config
@@ -121,12 +121,27 @@ Phases:
         the JAX tests' bounds), interpolate_frames at t = 0.5, BTV-L1
         super-resolution of 8 frames of 240x320 with Farneback flows;
         card against CPU at 240x320;
+     s. bgfg: video analytics on crowd_gt()'s 40 boxes painted over frame 0
+        (120 frames 480x640, N(0, 2) noise): MOG2, KNN, GMG and FGD per
+        frame, MOG2's mask opened (3), contours, boxes of area >= 50 px;
+        box recall and precision at IoU >= 0.5 beside the JAX package's;
+        card against CPU on 10 frames from one state;
+     t. photo: NLM, Telea and diffusion inpainting, seamless cloning, the
+        HDR chain (MTB alignment, Debevec and Robertson responses, merge,
+        tonemap, Mertens), TV-L1 denoising, decolor and the four
+        domain-transform filters at 480x640, each figure against the JAX
+        tests' bound; card against CPU on 120x160;
+     u. imgops: histograms and CLAHE, colour round trips, template
+        matching, phase correlation, distance transform, flood fill,
+        mean-shift segmentation, LSD and shape distances at 480x640;
+        card against CPU;
   5. profile: torch.profiler over frames 40-44 of steady tracking of the
      ORB engine and of the klt engine, one two-view
      pair, one calibrate_camera of 20 views, one warm HOG-mode frame
      (detect and track), one warm calibration-app run, stabilize over
      8 frames, one 480x640 panorama, one 480x640 GrabCut iteration, one
-     480x640 SGBM disparity and one 480x640 TV-L1 pair (device busy
+     480x640 SGBM disparity, one 480x640 TV-L1 pair, one [bgfg] frame
+     and one 480x640 nl_means_denoise (device busy
      share, kernels per unit, top kernels, top host operations).
 Prints a JSON line of path results (each with its unit and unit count),
 a JSON line of kernels, the card line, and last {"ok": true, "device":
@@ -3095,6 +3110,649 @@ def phase_flow(frame0: np.ndarray, card: str, dev: str = "cuda") -> dict:
     return res
 
 
+# ------------------------------------------------------------ image-processing group slice
+
+BGFG_FRAMES = 120
+BGFG_FROM = 20  # box recall and precision over frames 20-119
+BGFG_MIN_AREA = 50.0  # px, the contour area a box must reach
+BGFG_IOU = 0.5
+BGFG_CPU_FROM, BGFG_CPU_FRAMES = 60, 10  # card against CPU from the state after frame 60
+# the JAX package's [bgfg] figures on bgfg_scene(), from tools/jax_slice9_figures.py (CPU)
+JAX_FIGURES_SLICE9 = {"bgfg": {"recall": 0.55675, "precision": 0.711957}}
+
+
+def bgfg_scene(base: np.ndarray, seed: int = 5):
+    """The crowd of crowd_gt() (32 pedestrians, 8 vehicles, 120 frames) as
+    solid boxes at fixed grey levels (uniform 120-250, one per box, later
+    boxes over earlier ones) on the static background `base`, each frame
+    with N(0, 2) sensor noise, clipped to [0, 255]. Frame 0 is the empty
+    background. Returns (frames f32 [121, H, W], ground-truth integer
+    boxes (x, y, w, h) [120, 40, 4])."""
+    rng = np.random.default_rng(seed)
+    boxes = np.concatenate(crowd_gt(), 1)
+    levels = rng.uniform(120.0, 250.0, boxes.shape[1])
+    h, w = base.shape
+    frames = [base + rng.normal(0.0, 2.0, (h, w))]
+    gt = np.zeros(boxes.shape, np.int64)
+    for t in range(boxes.shape[0]):
+        img = base.copy()
+        for i, ((x, y, bw, bh), g) in enumerate(zip(boxes[t], levels)):
+            x0, y0, x1, y1 = (int(round(v)) for v in (x, y, x + bw, y + bh))
+            img[y0:y1, x0:x1] = g
+            gt[t, i] = (x0, y0, x1 - x0, y1 - y0)
+        frames.append(img + rng.normal(0.0, 2.0, (h, w)))
+    return np.clip(np.stack(frames), 0, 255).astype(np.float32), gt
+
+
+def box_matches(det: np.ndarray, gt: np.ndarray, iou_min: float = BGFG_IOU) -> int:
+    """Greedy one-to-one matches of (x, y, w, h) boxes at IoU >= iou_min,
+    highest IoU first."""
+    if len(det) == 0 or len(gt) == 0:
+        return 0
+    d = np.asarray(det, np.float64)[:, None, :]
+    g = np.asarray(gt, np.float64)[None, :, :]
+    iw = np.clip(np.minimum(d[..., 0] + d[..., 2], g[..., 0] + g[..., 2]) - np.maximum(d[..., 0], g[..., 0]), 0, None)
+    ih = np.clip(np.minimum(d[..., 1] + d[..., 3], g[..., 1] + g[..., 3]) - np.maximum(d[..., 1], g[..., 1]), 0, None)
+    inter = iw * ih
+    iou = inter / (d[..., 2] * d[..., 3] + g[..., 2] * g[..., 3] - inter)
+    used_d, used_g, n = set(), set(), 0
+    for k in np.argsort(-iou, axis=None, kind="stable"):
+        i, j = divmod(int(k), iou.shape[1])
+        if iou[i, j] < iou_min:
+            break
+        if i not in used_d and j not in used_g:
+            used_d.add(i)
+            used_g.add(j)
+            n += 1
+    return n
+
+
+def recall_precision(dets: list, gt: np.ndarray) -> tuple[float, float]:
+    """Box recall and precision over frames BGFG_FROM.. of the scene."""
+    m = sum(box_matches(dets[t], gt[t]) for t in range(BGFG_FROM, len(dets)))
+    n_gt = sum(len(gt[t]) for t in range(BGFG_FROM, len(dets)))
+    n_det = sum(len(dets[t]) for t in range(BGFG_FROM, len(dets)))
+    return m / n_gt, m / max(n_det, 1)
+
+
+def bgfg_init(frame0, dev):
+    from opencv_tpu_torch.ops import bgsegm
+
+    f0 = torch_tensor(frame0, dev)
+    h, w = f0.shape
+    return (bgsegm.init_state(f0), bgsegm.knn_init(f0), bgsegm.gmg_init(h, w, device=dev),
+            bgsegm.fgd_init(f0))
+
+
+def torch_tensor(x, dev):
+    """numpy (or a tensor) as a tensor on `dev`."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return torch.as_tensor(np.ascontiguousarray(x), device=dev)
+
+
+def bgfg_boxes(mask):
+    """MOG2's mask through morphology_open(3), find_contours, and the
+    bounding_rect of every outer contour whose contour_area is at least
+    BGFG_MIN_AREA (one host read of the stacked figures). Returns (boxes
+    int [n, 4], the opened mask, the Contours)."""
+    import torch
+
+    from opencv_tpu_torch.ops import contours, morphology
+
+    opened = morphology.morphology_open(mask.to(torch.float32), 3) > 0
+    cs = contours.find_contours(opened)
+    keep = [i for i in range(cs.points.shape[0]) if cs.valid[i] and not cs.is_hole[i]]
+    if not keep:
+        return np.zeros((0, 4), np.int64), opened, cs
+    n = cs.lengths[keep]
+    on_dev = torch_tensor(cs.points[keep, :n.max()], mask.device)  # one upload a frame
+    pts = [on_dev[j, :n[j]] for j in range(len(keep))]
+    area = torch.stack([contours.contour_area(p) for p in pts])
+    rect = torch.stack([contours.bounding_rect(p) for p in pts])
+    area, rect = area.cpu().numpy(), rect.cpu().numpy()
+    return rect[area >= BGFG_MIN_AREA].astype(np.int64), opened, cs
+
+
+def bgfg_step(state, frame, gen=None, draws=None):
+    """One frame of the four models; (new state, masks, boxes). KNN draws
+    from `gen`, or takes `draws` = (slot, uniform)."""
+    from opencv_tpu_torch.ops import bgsegm
+
+    mog, knn, gmg, fgd = state
+    mog, m_mog = bgsegm.apply(mog, frame)
+    if draws is None:
+        knn, m_knn = bgsegm.knn_apply(knn, frame, gen)
+    else:
+        knn, m_knn = bgsegm.knn_apply(knn, frame, slot=draws[0], uniform=draws[1])
+    gmg, m_gmg = bgsegm.gmg_apply(gmg, frame)
+    fgd, m_fgd = bgsegm.fgd_apply(fgd, frame)
+    boxes, opened, cs = bgfg_boxes(m_mog)
+    return (mog, knn, gmg, fgd), dict(mog2=m_mog, knn=m_knn, gmg=m_gmg, fgd=m_fgd, opened=opened,
+                                      contours=cs), boxes
+
+
+def bgfg_run(frames_dev, dev, keep_at: int | None = None):
+    """The video-analytics loop over the scene: (boxes per frame, model
+    foreground shares per frame, the state after frame `keep_at`)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = bgfg_init(frames_dev[0], dev)
+    dets, kept = [], None
+    for t in range(1, frames_dev.shape[0]):
+        state, _, boxes = bgfg_step(state, frames_dev[t], gen)
+        dets.append(boxes)
+        if t == keep_at:
+            kept = state
+    return dets, kept
+
+
+def _state_to(state, dev):
+    return tuple(type(s)(*(v.to(dev) if hasattr(v, "to") else v for v in s)) for s in state)
+
+
+def phase_bgfg(base: np.ndarray, card: str, dev: str = "cuda") -> dict:
+    """[bgfg] video analytics at 480x640 over bgfg_scene's 120 frames: per
+    frame MOG2 (MOG2Config() defaults), KNN, GMG and FGD, then MOG2's mask
+    through morphology_open(3), find_contours, bounding_rect and
+    contour_area (>= 50 px); box recall and precision at IoU >= 0.5 over
+    frames 20-119 beside the JAX package's on the same scene
+    (JAX_FIGURES_SLICE9). Cold on the first COLD_FRAMES frames, then warm
+    WARM_RUNS times over all 120 (unit: a frame).
+    Card against CPU on 10 frames from the card's state after frame 60
+    with the same KNN draws: MOG2, GMG and FGD masks >= 99.9 % equal, KNN's
+    equal, contours equal wherever the opened masks are."""
+    import torch
+
+    frames, gt = bgfg_scene(base)
+    fd = torch_tensor(frames, dev)
+    t0 = time.perf_counter()
+    bgfg_run(fd[:COLD_FRAMES + 1], dev)  # loads every kernel of the warm runs
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    outs, secs, runs = warm_runs_of(lambda: bgfg_run(fd, dev, BGFG_CPU_FROM), WARM_RUNS)
+    dets, kept = outs[0]
+    recall, precision = recall_precision(dets, gt)
+    jax_fig = JAX_FIGURES_SLICE9.get("bgfg")
+
+    rng = np.random.default_rng(9)
+    card_state, cpu_state = kept, _state_to(kept, "cpu")
+    equal = {k: [] for k in ("mog2", "knn", "gmg", "fgd")}
+    contours_checked = contours_equal = 0
+    t0 = time.perf_counter()
+    for t in range(BGFG_CPU_FROM + 1, BGFG_CPU_FROM + 1 + BGFG_CPU_FRAMES):
+        slot = torch.from_numpy(rng.integers(0, 10, frames.shape[1:]))
+        u = torch.from_numpy(rng.random(frames.shape[1:], dtype=np.float32))
+        card_state, mc, _ = bgfg_step(card_state, fd[t], draws=(slot.to(dev), u.to(dev)))
+        with torch_threads(1):
+            cpu_state, mp, _ = bgfg_step(cpu_state, torch.from_numpy(frames[t]), draws=(slot, u))
+        for k in equal:
+            equal[k].append(float((mc[k].cpu() == mp[k]).float().mean()))
+        if torch.equal(mc["opened"].cpu(), mp["opened"]):
+            contours_checked += 1
+            contours_equal += all(np.array_equal(a, b) for a, b in zip(mc["contours"], mp["contours"]))
+    cpu_s = time.perf_counter() - t0
+    share = {k: min(v) for k, v in equal.items()}
+    warm = statistics.median(secs)
+    n = BGFG_FRAMES
+    res = dict(units=n, unit="frame", fps_warm=n / warm, fps_warm_runs=[n / s for s in secs], cold_s=cold,
+               recall=recall, precision=precision, jax_figures=jax_fig,
+               boxes_per_frame=float(np.mean([len(d) for d in dets])),
+               card_vs_cpu_min_equal_share=share, contours_equal=[contours_equal, contours_checked],
+               cpu_s=cpu_s, launches=runs[0], card=card)
+    print(f"[bgfg] {n} frames 480x640, 40 boxes (MOG2, KNN, GMG, FGD; MOG2 -> open 3 -> contours -> "
+          f"boxes >= {BGFG_MIN_AREA:.0f} px) | {card}: box recall {recall:.4f}, precision {precision:.4f} "
+          f"at IoU >= {BGFG_IOU} over frames {BGFG_FROM}-{n - 1} (the JAX package's on this scene: "
+          f"{jax_fig}); {res['boxes_per_frame']:.2f} boxes a frame; warm {n / warm:.2f} frames/s "
+          f"(median of {WARM_RUNS}, range {n / max(secs):.2f} to {n / min(secs):.2f}), cold {cold:.3f} s "
+          f"({COLD_FRAMES} frames)",
+          flush=True)
+    print(f"[bgfg] card vs CPU on frames {BGFG_CPU_FROM + 1}-{BGFG_CPU_FROM + BGFG_CPU_FRAMES} from the "
+          f"same state and KNN draws: least equal mask share {share}; contours equal on "
+          f"{contours_equal} of the {contours_checked} frames with equal opened masks ({cpu_s:.2f} s); "
+          f"launches {runs[0]}", flush=True)
+    if jax_fig is not None and not (abs(recall - jax_fig["recall"]) <= 0.01
+                                    and abs(precision - jax_fig["precision"]) <= 0.01):
+        fail(f"[bgfg] recall {recall} / precision {precision} away from the JAX package's {jax_fig}")
+    if not (share["knn"] == 1.0 and min(share["mog2"], share["gmg"], share["fgd"]) >= 0.999):
+        fail(f"[bgfg] the card's masks differ from the CPU's: {share}")
+    if contours_checked == 0 or contours_equal != contours_checked:
+        fail(f"[bgfg] contours equal on {contours_equal} of {contours_checked} frames")
+    return res
+
+
+PHOTO_HOLE = (slice(200, 240), slice(300, 360))  # 40x60
+PHOTO_PATCH = (slice(150, 250), slice(400, 500))  # 100x100 seamless_clone target
+HDR_TIMES = np.array([1 / 60, 1 / 15, 1 / 4, 1.0], np.float32)
+HDR_SHIFT = (3, -2)  # px, exposure 1 of 4 rolled by it
+HDR_GAMMA = 2.2
+PHOTO_CROP = (slice(180, 300), slice(280, 440))  # 120x160: card against CPU
+
+
+def psnr(a, b) -> float:
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return 10.0 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+def hdr_stack(h: int = 480, w: int = 640, seed: int = 0):
+    """tests/test_hdr.py's exposure stack at h x w: a smooth radiance map
+    plus blocky texture through z = 255 (E t)^(1/2.2); exposure 1 rolled
+    by HDR_SHIFT. Returns (stack f32 [4, H, W], radiance E, unshifted)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    E = 0.02 + 0.6 * (np.sin(xx / 9.0) * np.cos(yy / 7.0) * 0.5 + 0.5)
+    E = E + np.kron(rng.uniform(0, 0.35, (h // 4 + 1, w // 4 + 1)), np.ones((4, 4)))[:h, :w]
+    clean = np.stack([np.clip(255.0 * np.clip(E * t, 0, None) ** (1 / HDR_GAMMA), 0, 255)
+                      for t in HDR_TIMES]).astype(np.float32)
+    stack = clean.copy()
+    stack[1] = np.roll(clean[1], HDR_SHIFT, (0, 1))
+    return stack, E, clean
+
+
+def photo_inputs(frame0: np.ndarray, seed: int = 11) -> dict:
+    """The [photo] inputs from the scene's frame 0: RGB = jet colormap of
+    it; frame 0 + N(0, 10) for NLM; a 40x60 hole in frame 0 blurred (25,
+    6.0) (inpainting restores smooth content, as the JAX tests' scenes;
+    the sparse splats of frame 0 itself it cannot); a 100x100 patch of
+    the RGB's green channel rolled by 50 px cloned into frame 0; 4
+    observations of frame 0 + N(0, 20); the HDR stack."""
+    import torch
+
+    from opencv_tpu_torch.core import imgproc
+
+    rng = np.random.default_rng(seed)
+    smooth = imgproc.gaussian_blur(torch.from_numpy(frame0), 25, 6.0).numpy()
+    hole = np.zeros(frame0.shape, bool)
+    hole[PHOTO_HOLE] = True
+    patch = np.zeros(frame0.shape, bool)
+    patch[PHOTO_PATCH] = True
+    return dict(gray=frame0, noisy=(frame0 + rng.normal(0, 10, frame0.shape)).astype(np.float32),
+                smooth=smooth, hole=hole, holed=np.where(hole, 0.0, smooth).astype(np.float32),
+                patch=patch,
+                obs=np.stack([np.clip(frame0 + rng.normal(0, 20, frame0.shape), 0, 255)
+                              for _ in range(4)]).astype(np.float32),
+                hdr=hdr_stack())
+
+
+def photo_run(x: dict, dev, draws=None) -> dict:
+    """Every [photo] step once on `dev`; its outputs and seconds per step.
+    `draws` = (Debevec's pixel indices, decolor's pixel pairs), else the
+    functions draw their own."""
+    import torch
+
+    from opencv_tpu_torch.ops import colormap, photo
+
+    out, secs = {}, {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        if str(dev).startswith("cuda"):
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+
+    g = torch_tensor(x["gray"], dev)
+    step("rgb", lambda: colormap.apply_color_map(g, "jet"))
+    step("nlm", lambda: photo.nl_means_denoise(torch_tensor(x["noisy"], dev)))
+    hole = torch_tensor(x["hole"], dev)
+    step("telea", lambda: photo.inpaint_telea(torch_tensor(x["holed"], dev), hole))
+    step("diffusion", lambda: photo.inpaint_diffusion(torch_tensor(x["holed"], dev), hole))
+    src = torch.roll(out["rgb"][..., 1], 50, 1)
+    step("clone", lambda: photo.seamless_clone(src, g, torch_tensor(x["patch"], dev)))
+    stack = torch_tensor(x["hdr"][0], dev)
+    times = torch_tensor(HDR_TIMES, dev)
+    step("align", lambda: photo.align_mtb(stack))
+    idx, pairs = (None, None) if draws is None else draws
+    step("debevec", lambda: photo.calibrate_debevec(out["align"], times, idx=idx))
+    step("robertson", lambda: photo.calibrate_robertson(out["align"], times))
+    step("merge", lambda: photo.merge_debevec(out["align"], times, out["debevec"]))
+    step("tonemap", lambda: photo.tonemap_reinhard(out["merge"]))
+    step("mertens", lambda: photo.merge_mertens(out["align"]))
+    step("tvl1", lambda: photo.denoise_tvl1(torch_tensor(x["obs"], dev)))
+    step("decolor", lambda: photo.decolor(out["rgb"], pairs=pairs))
+    step("epf", lambda: photo.edge_preserving_filter(out["rgb"]))
+    step("detail", lambda: photo.detail_enhance(out["rgb"]))
+    step("stylization", lambda: photo.stylization(out["rgb"]))
+    step("pencil", lambda: photo.pencil_sketch(out["rgb"]))
+    out["secs"] = secs
+    return out
+
+
+def photo_figures(o: dict, x: dict) -> dict:
+    """Each [photo] figure, beside the bound of the JAX package's test of
+    it where it has one."""
+    f0 = x["gray"]
+    den = o["nlm"].cpu().numpy()
+    fig = {"nlm_psnr_gain_db": psnr(den, f0) - psnr(x["noisy"], f0)}
+    fig["nlm_err_ratio"] = float(np.abs(den - f0).mean() / np.abs(x["noisy"] - f0).mean())
+    for k in ("telea", "diffusion"):
+        fig[f"{k}_hole_err"] = float(np.abs(o[k].cpu().numpy() - x["smooth"])[x["hole"]].mean())
+    cl = o["clone"].cpu().numpy()
+    src = np.roll(o["rgb"][..., 1].cpu().numpy(), 50, 1)
+    inner = (slice(PHOTO_PATCH[0].start + 5, PHOTO_PATCH[0].stop - 5),
+             slice(PHOTO_PATCH[1].start + 5, PHOTO_PATCH[1].stop - 5))
+    # the cloned patch keeps the source's texture: its gradients, not its level
+    fig["clone_grad_err"] = float(np.abs(np.diff(cl[inner], axis=1) - np.diff(src[inner], axis=1)).mean())
+    fig["clone_outside_equal"] = bool(np.array_equal(cl[~x["patch"]], f0[~x["patch"]]))
+    stack, E, clean = x["hdr"]
+    al = o["align"].cpu().numpy()
+    fig["align_err"] = float(np.abs(al[1] - clean[1])[16:-16, 16:-16].mean())
+    g = o["debevec"].cpu().numpy()
+    zs = np.arange(30, 226)
+    want = HDR_GAMMA * np.log(zs / 255.0) - HDR_GAMMA * np.log(128 / 255.0)
+    fig["debevec_err"] = float(np.abs(g[zs] - g[128] - want).mean())
+    gr = o["robertson"].cpu().numpy()
+    fig["robertson_monotone"] = bool((np.diff(gr) >= -1e-6).all() and abs(gr[128] - 1.0) < 1e-3)
+    hdr = o["merge"].cpu().numpy()
+    m = (hdr > 0) & (E > 0.05)
+    fig["merge_log_spread"] = float(np.std(np.log(hdr[m] / E[m])))
+    ldr = o["tonemap"].cpu().numpy()
+    fig["tonemap_range"] = [float(ldr.min()), float(ldr.max())]
+    fig["mertens_range"] = [float(o["mertens"].min()), float(o["mertens"].max())]
+    fig["tvl1_psnr_gain_db"] = psnr(o["tvl1"].cpu().numpy(), f0) - psnr(x["obs"][0], f0)
+    gray, boost = (v.cpu().numpy() for v in o["decolor"])
+    fig["decolor_range"] = [float(gray.min()), float(gray.max()), list(boost.shape)]
+    sk = o["pencil"][0].cpu().numpy()
+    fig["pencil_mean_min"] = [float(sk.mean()), float(sk.min())]
+    sty = o["stylization"].cpu().numpy()
+    fig["stylization_range"] = [float(sty.min()), float(sty.max())]
+    return fig
+
+
+# each figure's bound: tests/test_photo_videostab.py (NLM 0.45 error ratio, diffusion), test_photo2.py
+# (Telea 6.0, TV-L1 +4 dB for several observations, pencil sketch), test_hdr.py (Debevec 0.15,
+# merge spread 0.25, Robertson), test_decompose.py (seamless clone)
+PHOTO_BOUNDS = {"nlm_err_ratio": 0.45, "telea_hole_err": 6.0, "diffusion_hole_err": 6.0,
+                "debevec_err": 0.15, "merge_log_spread": 0.25, "tvl1_psnr_gain_db": 4.0,
+                "clone_grad_err": 8.0}
+PHOTO_CPU_TOL = {"nlm": 1e-2, "telea": 1e-2, "diffusion": 1e-2, "clone": 1e-2, "align": 0.0,
+                 "debevec": 1e-3, "robertson": 1e-4, "merge": 1e-3, "tonemap": 1e-2, "mertens": 1e-4,
+                 "tvl1": 1e-2, "decolor": 1e-2, "epf": 1e-2, "detail": 5e-2, "stylization": 5e-2,
+                 "pencil": 5e-2, "rgb": 0.0}
+
+
+def phase_photo(frame0: np.ndarray, card: str, dev: str = "cuda") -> dict:
+    """[photo] at 480x640 (RGB = apply_color_map(frame 0, "jet")):
+    nl_means_denoise of frame 0 + N(0, 10), inpaint_telea and
+    inpaint_diffusion of a 40x60 hole in frame 0 blurred, seamless_clone of a 100x100 patch,
+    the HDR chain on 4 exposures with one rolled by (3, -2) px (align_mtb,
+    calibrate_debevec, calibrate_robertson, merge_debevec,
+    tonemap_reinhard, merge_mertens), denoise_tvl1 of 4 observations,
+    decolor and the four domain-transform filters. Each figure against the
+    JAX package's test bound (PHOTO_BOUNDS); cold, then warm WARM_RUNS
+    times (unit: a run). Card against CPU on PHOTO_CROP (120x160 of every
+    input; the HDR chain on its own 120x160 stack; the same Debevec
+    samples and decolor pairs, drawn on the host): mean |difference|
+    within 1e-3 and max within PHOTO_CPU_TOL per output (grey levels;
+    radiance and log response in their units; the align stack equal)."""
+    import torch
+
+    x = photo_inputs(frame0)
+    t0 = time.perf_counter()
+    photo_run(x, dev)
+    cold = time.perf_counter() - t0
+    outs, secs, runs = warm_runs_of(lambda: photo_run(x, dev), WARM_RUNS)
+    o = outs[0]
+    fig = photo_figures(o, x)
+    step_s = {k: statistics.median(r["secs"][k] for r in outs) for k in o["secs"]}
+
+    crop = {k: (np.ascontiguousarray(v[PHOTO_CROP]) if k not in ("obs", "hdr")
+                else np.ascontiguousarray(v[:, PHOTO_CROP[0], PHOTO_CROP[1]]) if k == "obs" else v)
+            for k, v in x.items()}
+    crop["hdr"] = hdr_stack(120, 160)
+    rng = np.random.default_rng(12)
+    draws = (rng.permutation(120 * 160)[:70], [rng.integers(0, 120 * 160, 4096) for _ in range(2)])
+    c_card = photo_run(crop, dev, draws)
+    t0 = time.perf_counter()
+    with torch_threads(1):
+        c_cpu = photo_run(crop, "cpu", draws)
+    cpu_s = time.perf_counter() - t0
+    diffs = {}
+    for k, tol in PHOTO_CPU_TOL.items():
+        a, b = c_card[k], c_cpu[k]
+        pairs = list(zip(a, b)) if isinstance(a, tuple) else [(a, b)]
+        d = [(ai.cpu().double() - bi.double()).abs() for ai, bi in pairs]
+        diffs[k] = (max(float(v.mean()) for v in d), max(float(v.max()) for v in d))
+    warm = statistics.median(secs)
+    res = dict(units=1, unit="run", warm_s=warm, warm_s_runs=secs, cold_s=cold, step_s=step_s,
+               figures=fig, bounds=PHOTO_BOUNDS, card_vs_cpu=diffs, cpu_s=cpu_s, launches=runs[0],
+               card=card)
+    print(f"[photo] 480x640 (RGB: jet of frame 0) | {card}: figures {json.dumps(fig)}; bounds of the "
+          f"JAX package's tests {PHOTO_BOUNDS}", flush=True)
+    print(f"[photo] seconds per step " + ", ".join(f"{k} {v:.4f}" for k, v in step_s.items())
+          + f" (median of {WARM_RUNS}); warm run {warm:.3f} s, cold {cold:.3f} s | {card}; card vs CPU "
+          f"on 120x160 (mean, max |difference|) {diffs} ({cpu_s:.2f} s on the CPU); launches {runs[0]}",
+          flush=True)
+    bad = [k for k, b in PHOTO_BOUNDS.items()
+           if not (fig[k] > b if k == "tvl1_psnr_gain_db" else fig[k] < b)]
+    if not (fig["nlm_psnr_gain_db"] > 0 and fig["clone_outside_equal"] and fig["robertson_monotone"]
+            and fig["align_err"] < 2.0 and fig["pencil_mean_min"][0] > 150.0):
+        bad.append("nlm gain / clone outside / robertson / align / pencil")
+    if bad:
+        fail(f"[photo] figures beyond their bounds: {bad}: {fig}")
+    off = {k: v for k, v in diffs.items() if not (v[0] <= 1e-3 and v[1] <= PHOTO_CPU_TOL[k])}
+    if off:
+        fail(f"[photo] the card differs from the CPU: {off}")
+    return res
+
+
+TEMPLATE_AT = (200, 300)  # (y, x) of the 64x64 patch cut from frame 0
+PHASE_SHIFT = (5.3, -2.7)  # (dx, dy) px: a periodic sub-pixel shift of frame 0 blurred (7, 2.0)
+MSS_SIZE = (240, 320)  # mean_shift_segmentation runs on frame 0 resized to this
+LSD_NOISE = 2.0  # grey: tests/test_lsd.py's noise level (lane_frame's 20-60 uniform noise buries LSD)
+
+
+def fourier_shift(img: np.ndarray, dx: float, dy: float) -> np.ndarray:
+    """img moved by (dx, dy) px, periodically, by a phase ramp (f64 FFT)."""
+    h, w = img.shape
+    fy = np.fft.fftfreq(h)[:, None]
+    fx = np.fft.fftfreq(w)[None, :]
+    ramp = np.exp(-2j * np.pi * (fx * dx + fy * dy))
+    return np.real(np.fft.ifft2(np.fft.fft2(img) * ramp)).astype(np.float32)
+
+
+def lsd_frame(seed: int = 3) -> np.ndarray:
+    """lane_frame's two lanes (220, 2 px) on a flat 40 with N(0, 2) noise."""
+    rng = np.random.default_rng(seed)
+    img = lane_frame(rng)
+    return np.where(img >= 200, img, 40.0 + rng.normal(0, LSD_NOISE, img.shape)).astype(np.float32)
+
+
+def shape_points(mask: np.ndarray, n: int = 64) -> np.ndarray:
+    """n points evenly along the first outer contour of `mask`."""
+    from opencv_tpu_torch.ops import contours
+
+    cs = contours.find_contours(mask)
+    pts = cs.points[0, :cs.lengths[0]].astype(np.float32)
+    return pts[np.linspace(0, len(pts) - 1, n).astype(int)]
+
+
+def shape_masks(h: int = 160, w: int = 200):
+    """An ellipse, the same ellipse scaled by 1.05 and moved by (3, 2) px
+    (shape contexts are scale- and translation- but not
+    rotation-invariant), and a rectangle of about its area."""
+    yy, xx = np.mgrid[:h, :w].astype(np.float64)
+
+    def ellipse(s, dx, dy):
+        return ((xx - 100 - dx) / (60 * s)) ** 2 + ((yy - 80 - dy) / (30 * s)) ** 2 < 1
+
+    rect = (np.abs(xx - 100) < 48) & (np.abs(yy - 80) < 30)
+    return ellipse(1.0, 0, 0), ellipse(1.05, 3, 2), rect
+
+
+def imgops_run(frame0: np.ndarray, dev) -> dict:
+    """Every [imgops] step once on `dev`."""
+    import torch
+
+    from opencv_tpu_torch.core import imgproc
+    from opencv_tpu_torch.ops import (color, colormap, contours, distance, histogram, lsd, phasecorr,
+                                      shape, template)
+
+    out = {}
+    g = torch_tensor(frame0, dev)
+    out["hist"] = histogram.calc_hist(g)
+    out["equalized"] = histogram.equalize_hist(g)
+    out["clahe"] = histogram.clahe(g)
+    rgb = out["rgb"] = colormap.apply_color_map(g, "jet")
+    out["hsv"] = color.rgb_to_hsv(rgb)
+    out["hsv_rt"] = color.hsv_to_rgb(out["hsv"])
+    out["ycrcb"] = color.rgb_to_ycrcb(rgb)
+    out["ycrcb_rt"] = color.ycrcb_to_rgb(out["ycrcb"])
+    out["lab"] = color.rgb_to_lab(rgb)
+    ty, tx = TEMPLATE_AT
+    tmpl = g[ty:ty + 64, tx:tx + 64]
+    out["template"] = {m: template.match_template(g, tmpl, m) for m in template.METHODS}
+    # tests/test_segmentation2.py's setting: a blurred image and a Hann
+    # window (the 5x5 centroid of a sharp peak is biased toward integers)
+    smooth = imgproc.gaussian_blur(g, 7, 2.0)
+    moved = torch_tensor(fourier_shift(smooth.cpu().numpy(), *PHASE_SHIFT), dev)
+    win = phasecorr.create_hanning_window(*frame0.shape, device=dev)
+    (dx, dy), resp = phasecorr.phase_correlate(smooth, moved, win)
+    out["phase"] = torch.stack([dx, dy, resp])
+    mask = g > 20.0
+    out["dist"] = distance.distance_transform(mask)
+    sy, sx = np.unravel_index(np.argmin(frame0), frame0.shape)
+    out["flood"] = distance.flood_fill(g, (int(sx), int(sy)), 255.0, 3.0, 3.0)
+    out["mss"] = distance.mean_shift_segmentation(imgproc.resize_bilinear(g, *MSS_SIZE))
+    out["lines"] = lsd.detect_lines(torch_tensor(lsd_frame(), dev))
+    a_m, b_m, r_m = shape_masks()
+    a, b, r = (torch_tensor(shape_points(m), dev) for m in (a_m, b_m, r_m))
+    out["scd"] = [shape.shape_context_distance(a, b), shape.shape_context_distance(a, r)]
+    out["hausdorff"] = torch.stack([shape.hausdorff_distance(a, b), shape.hausdorff_distance(a, r)])
+    tps = shape.fit_tps(a, b, 0.01)
+    out["tps"] = shape.apply_tps(tps, a)
+    # EMD between 16 of the contour points of each shape, unit weights (a 256-flow LP on the host)
+    pa, pb, pr = (p[::4].cpu().numpy() for p in (a, b, r))
+    ones = np.ones(len(pa))
+    out["emd"] = [shape.emd_exact(ones, ones, pos1=pa, pos2=q) for q in (pb, pr)]
+    out["hu"] = [contours.hu_moments(contours.contour_moments(p)) for p in (a, b, r)]
+    return out
+
+
+def _seg_dist(seg, p, q) -> float:
+    a = np.hypot(*(seg[:2] - p)) + np.hypot(*(seg[2:] - q))
+    b = np.hypot(*(seg[:2] - q)) + np.hypot(*(seg[2:] - p))
+    return min(a, b) / 2
+
+
+def phase_imgops(frame0: np.ndarray, card: str, dev: str = "cuda") -> dict:
+    """[imgops] at 480x640 on the scene's frame 0: calc_hist, equalize_hist,
+    clahe; HSV and YCrCb round trips and Lab of its jet colormap;
+    match_template of a 64x64 patch (every method finds it);
+    phase_correlate of frame 0 blurred (7, 2.0) and moved periodically by
+    (5.3, -2.7) px, with a Hann window (within 0.1 px);
+    distance_transform and flood_fill at full size, mean_shift_segmentation
+    at 240x320; detect_lines on lane_frame's lanes at tests/test_lsd.py's
+    noise (segments within 6 px of both lanes); shape_context_distance,
+    hausdorff_distance, emd_exact, TPS and Hu moments on find_contours
+    points of an ellipse, its scaled and moved copy and a rectangle (each
+    distance smaller to the copy than to the rectangle). Cold, then warm WARM_RUNS
+    times (unit: a run). Card against CPU: histograms, equalized image,
+    CLAHE, HSV/YCrCb, distances, flood fill, segmentation labels and LSD
+    segment counts equal; Lab, template scores, phase, region means, shape
+    figures within IMGOPS_CPU_TOL."""
+    import torch
+
+    t0 = time.perf_counter()
+    imgops_run(frame0, dev)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    outs, secs, runs = warm_runs_of(lambda: imgops_run(frame0, dev), WARM_RUNS)
+    o = outs[0]
+    ty, tx = TEMPLATE_AT
+    found = {}
+    for m, sc in o["template"].items():
+        s = sc.cpu().numpy()
+        k = np.argmin(s) if m.startswith("sqdiff") else np.argmax(s)
+        found[m] = tuple(int(v) for v in np.unravel_index(k, s.shape))
+    dx, dy, resp = (float(v) for v in o["phase"].cpu())
+    rt = {k: float((o[k + "_rt"] - o["rgb"]).abs().max()) for k in ("hsv", "ycrcb")}
+    lines = o["lines"]
+    lanes = [(LANE_SCALE * np.array([x0, y0], np.float64), LANE_SCALE * np.array([x1, y1], np.float64))
+             for x0, y0, x1, y1 in LANES]
+    lane_dist = [min((_seg_dist(s, p, q) for s in lines), default=np.inf) for p, q in lanes]
+    labels, _ = o["mss"]
+    fig = dict(template_found=found, phase=[dx, dy, resp],
+               phase_err=max(abs(dx - PHASE_SHIFT[0]), abs(dy - PHASE_SHIFT[1])), round_trip_max=rt,
+               dist_max=float(o["dist"].max()), flood_px=int(o["flood"][1].sum()),
+               mss_regions=int(torch.unique(labels).numel()), lsd_segments=len(lines),
+               lsd_lane_dist=lane_dist, scd=o["scd"], hausdorff=o["hausdorff"].cpu().tolist(),
+               tps_err=float((o["tps"] - torch_tensor(shape_points(shape_masks()[1]), dev)).abs().max()),
+               emd=o["emd"], clahe_range=[float(o["clahe"].min()), float(o["clahe"].max())])
+
+    t0 = time.perf_counter()
+    with torch_threads(1):
+        cpu = imgops_run(frame0, "cpu")
+    cpu_s = time.perf_counter() - t0
+    same = {k: bool(torch.equal(o[k].cpu(), cpu[k])) for k in ("hist", "equalized", "clahe", "hsv", "ycrcb",
+                                                                  "dist")}
+    same["flood"] = all(torch.equal(a.cpu(), b) for a, b in zip(o["flood"], cpu["flood"]))
+    same["mss_labels"] = bool(torch.equal(o["mss"][0].cpu(), cpu["mss"][0]))
+    same["lsd_count"] = len(o["lines"]) == len(cpu["lines"])
+    err = {"lab": float((o["lab"].cpu() - cpu["lab"]).abs().max()),
+           "template_rel": max(float((o["template"][m].cpu() - cpu["template"][m]).abs().max()
+                                     / cpu["template"][m].abs().max()) for m in o["template"]),
+           "phase": float((o["phase"].cpu() - cpu["phase"]).abs().max()),
+           "mss_means": float((o["mss"][1].cpu() - cpu["mss"][1]).abs().max()),
+           "lsd_px": float(np.abs(o["lines"] - cpu["lines"]).max()) if same["lsd_count"] and len(lines) else 0.0,
+           "scd": max(abs(a - b) for a, b in zip(o["scd"], cpu["scd"])),
+           "hausdorff": float((o["hausdorff"].cpu() - cpu["hausdorff"]).abs().max()),
+           "tps": float((o["tps"].cpu() - cpu["tps"]).abs().max()),
+           "emd": max(abs(x - y) for x, y in zip(o["emd"], cpu["emd"]))}
+    warm = statistics.median(secs)
+    res = dict(units=1, unit="run", warm_s=warm, warm_s_runs=secs, cold_s=cold, figures=fig,
+               card_vs_cpu_equal=same, card_vs_cpu_err=err, cpu_s=cpu_s, launches=runs[0], card=card)
+    print(f"[imgops] 480x640 | {card}: {json.dumps(fig)}; warm run {warm:.3f} s (median of {WARM_RUNS}), "
+          f"cold {cold:.3f} s", flush=True)
+    print(f"[imgops] card vs CPU: equal {same}; largest differences {err} ({cpu_s:.2f} s on the CPU); "
+          f"launches {runs[0]}", flush=True)
+    if any(v != TEMPLATE_AT for v in found.values()):
+        fail(f"[imgops] match_template missed the patch at {TEMPLATE_AT}: {found}")
+    if not fig["phase_err"] < 0.1:
+        fail(f"[imgops] phase_correlate found ({dx}, {dy}) for {PHASE_SHIFT}")
+    if not max(lane_dist) < 6.0:
+        fail(f"[imgops] LSD segments {lane_dist} px from the lanes (bound 6)")
+    if not (rt["hsv"] < 1e-2 and rt["ycrcb"] < 5e-2):
+        fail(f"[imgops] colour round trips off: {rt}")
+    if not (fig["scd"][0] < fig["scd"][1] and fig["hausdorff"][0] < fig["hausdorff"][1]
+            and fig["emd"][0] < fig["emd"][1] and fig["tps_err"] < 1.0):
+        fail(f"[imgops] shape figures do not tell the moved ellipse from the rectangle: {fig}")
+    if not all(same.values()):
+        fail(f"[imgops] the card differs from the CPU: {same}")
+    off = {k: v for k, v in err.items() if not v <= IMGOPS_CPU_TOL[k]}
+    if off:
+        fail(f"[imgops] the card differs from the CPU beyond {IMGOPS_CPU_TOL}: {off}")
+    return res
+
+
+IMGOPS_CPU_TOL = {"lab": 1e-3, "template_rel": 1e-5, "phase": 1e-3, "mss_means": 1e-3, "lsd_px": 1e-2,
+                  "scd": 1e-4, "hausdorff": 1e-3, "tps": 1e-2, "emd": 1e-6}
+
+
+def phase_profile_slice9(base: np.ndarray) -> None:
+    """Where the time goes in one warm [bgfg] frame (four models, opening,
+    contours, boxes) and in one warm 480x640 nl_means_denoise."""
+    import torch
+
+    from opencv_tpu_torch.ops import photo
+
+    frames, _ = bgfg_scene(base)
+    fd = torch_tensor(frames[:31], "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = bgfg_init(fd[0], "cuda")
+    for t in range(1, 30):
+        state, _, _ = bgfg_step(state, fd[t], gen)
+    torch.cuda.synchronize()
+    profile_report("profile bgfg frame", lambda: bgfg_step(state, fd[30], gen), 1, "frame")
+    noisy = torch_tensor(photo_inputs(base)["noisy"], "cuda")
+    photo.nl_means_denoise(noisy)
+    torch.cuda.synchronize()
+    profile_report("profile nl_means 480x640", lambda: photo.nl_means_denoise(noisy), 441, "shift")
+
+
 def phase_profile_slice8() -> None:
     """Where the time goes in one warm SGBM disparity and one warm TV-L1
     pair at 480x640."""
@@ -3279,7 +3937,10 @@ def main():
              "seg": timed("seg", phase_seg),
              "feat2": timed("feat2", phase_feat2, frames, K, card),
              "stereo": timed("stereo", phase_stereo, card),
-             "flow": timed("flow", phase_flow, frames[0], card)}
+             "flow": timed("flow", phase_flow, frames[0], card),
+             "bgfg": timed("bgfg", phase_bgfg, frames[0], card),
+             "photo": timed("photo", phase_photo, frames[0], card),
+             "imgops": timed("imgops", phase_imgops, frames[0], card)}
     timed("profile orb", phase_profile, frames, K, "orb", 40, 4)
     timed("profile klt", phase_profile, frames, K, "klt", 40, 4)
     timed("profile geometry", phase_profile_geometry, frames, K)
@@ -3287,6 +3948,7 @@ def main():
     timed("profile calibapp and stab", phase_profile_slice6, frames[0])
     timed("profile pano and grabcut", phase_profile_slice7)
     timed("profile sgbm and tvl1", phase_profile_slice8)
+    timed("profile bgfg and nl_means", phase_profile_slice9, frames[0])
     kernels = []
     for key, row in rows.items():
         by_path = {p: res["launches"][key] for p, res in paths.items()}

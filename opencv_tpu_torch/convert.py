@@ -1,12 +1,14 @@
 """Carrying state across from the JAX package.
 
 What carries across is configuration, the fixed BRIEF pattern (ops/orb.py
-draws it from the same seed), a landmark map, a tracker's state and a
-HOG detector's linear SVM. The tests build a nested dict with
-`dataclasses.asdict` on a JAX config and rebuild the port's config from
-it here, feed both engines the same landmark map through `load_map`,
-both trackers the same snapshot through `tracker_snapshot`, and both
-detectors the same weights through `hog_detector`. Everything arrives as
+draws it from the same seed), a landmark map, a tracker's state, a HOG
+detector's linear SVM and a background model's state. The tests build a
+nested dict with `dataclasses.asdict` on a JAX config and rebuild the
+port's config from it here, feed both engines the same landmark map
+through `load_map`, both trackers the same snapshot through
+`tracker_snapshot`, both detectors the same weights through
+`hog_detector`, and both background subtractors the same mid-sequence
+state through `background_state`. Everything arrives as
 numpy or plain Python; nothing here imports the JAX package.
 """
 
@@ -19,6 +21,7 @@ import torch
 
 from opencv_tpu_torch.core.config import LKConfig, MatchConfig, ORBConfig
 from opencv_tpu_torch.device import resolve_device
+from opencv_tpu_torch.ops import bgsegm
 from opencv_tpu_torch.slam.vo import VOConfig
 from opencv_tpu_torch.tbd.tracker import Track
 
@@ -73,3 +76,23 @@ def hog_detector(weights: np.ndarray, bias: float, device=None):
     port's (f32 weight tensor on the device, float bias)."""
     w = torch.as_tensor(np.asarray(weights, np.float32).reshape(-1), device=resolve_device(device))
     return w, float(bias)
+
+
+_BACKGROUND_STATES = (bgsegm.MOG2State, bgsegm.KNNState, bgsegm.GMGState, bgsegm.FGDState)
+
+
+def background_state(state, device=None):
+    """A JAX background model's state (MOG2State, KNNState, GMGState or
+    FGDState; its arrays as numpy or anything numpy reads) as the port's
+    state of the same fields: f32 tensors on the device, and the frame
+    counter as an int."""
+    fields = tuple(state._fields)
+    cls = next((c for c in _BACKGROUND_STATES if c._fields == fields), None)
+    if cls is None:
+        raise KeyError(f"not a background model state: {fields}")
+    dev = resolve_device(device)
+    vals = []
+    for f in fields:
+        v = np.asarray(getattr(state, f))
+        vals.append(int(v) if v.ndim == 0 else torch.as_tensor(np.array(v, np.float32), device=dev))
+    return cls(*vals)

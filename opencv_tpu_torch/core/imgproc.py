@@ -21,21 +21,25 @@ import torch.nn.functional as F
 _GRAY = (0.299, 0.587, 0.114)  # Rec.601, cv::cvtColor COLOR_RGB2GRAY
 
 
-def to_gray(img) -> torch.Tensor:
-    """RGB [..., H, W, 3] (or gray [H, W]) -> gray f32 [..., H, W].
-
-    XLA's CPU dot is an FMA chain: r*w0, then fma(g, w1, .), then
-    fma(b, w2, .). Here the products are exact in f64 and each sum is
-    rounded to f32, which gives the same bits on either device."""
-    img = torch.as_tensor(img).to(torch.float32)
-    if img.ndim == 2:
-        return img
-    w = [float(np.float32(v)) for v in _GRAY]
+def channel_dot(img: torch.Tensor, w) -> torch.Tensor:
+    """img [..., 3] . w (three floats) as XLA's CPU dot computes it: an FMA
+    chain c0*w0, then fma(c1, w1, .), then fma(c2, w2, .). Here the
+    products are exact in f64 and each sum is rounded to f32, which gives
+    the same bits on either device."""
     x = img.double()
     acc = (x[..., 0] * w[0]).to(torch.float32)
     for c in (1, 2):
         acc = (x[..., c] * w[c] + acc.double()).to(torch.float32)
     return acc
+
+
+def to_gray(img) -> torch.Tensor:
+    """RGB [..., H, W, 3] (or gray [H, W]) -> gray f32 [..., H, W], as the
+    JAX function's `img @ w` (`channel_dot`)."""
+    img = torch.as_tensor(img).to(torch.float32)
+    if img.ndim == 2:
+        return img
+    return channel_dot(img, [float(np.float32(v)) for v in _GRAY])
 
 
 def shift2d(img: torch.Tensor, dy: int, dx: int, fill: float = 0.0) -> torch.Tensor:

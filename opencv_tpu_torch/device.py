@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -31,3 +32,20 @@ def no_tf32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / f32(d) as a true division on every device. CUDA divides a tensor
+    by a Python float as a multiply by its reciprocal, which rounds
+    otherwise than the CPU's division and XLA's; a divisor on the device
+    takes the division kernel."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def on_device(x, device=None) -> torch.Tensor:
+    """`x` as a tensor: a tensor stays where it is unless `device` names
+    another device; anything else goes to `resolve_device(device)` (the
+    card unless the caller asks for the CPU)."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(resolve_device(device))
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device))

@@ -13,8 +13,10 @@ panorama, QR and segmentation slice (morphology, warps, blends,
 exposure, DP seams, stitch_pair with K1, QR detection and decoding, the
 push-relabel min-cut with its CUDA graph, GrabCut, watershed, histograms,
 mean shift and CamShift) on the card against the CPU; K3 at 512 bits, K2
-at BRISK's level shapes, and AGAST, BRISK, AKAZE, SGBM and TV-L1 on the
-card against the CPU.
+at BRISK's level shapes, AGAST, BRISK, AKAZE, SGBM and TV-L1, and the
+image-processing group (MOG2 and KNN steps, CLAHE, template matching,
+phase correlation, the distance transform, NLM and Telea inpainting at
+480x640) on the card against the CPU.
 
 This file imports neither jax nor the JAX package, so that it runs on a
 machine that has only PyTorch:
@@ -1044,3 +1046,79 @@ def test_tvl1_on_card_equals_cpu(card):
     want = tvl1.calc_optical_flow_tvl1(a, b, n_levels=3, device="cpu")
     d = (got - want).abs()
     assert float(d.mean()) <= 1e-3 and float(d.max()) <= 0.05
+
+
+def _scene_480(rng):
+    img = np.zeros((480, 640), np.float32)
+    for _ in range(60):
+        y, x = rng.integers(0, 440), rng.integers(0, 600)
+        img[y:y + rng.integers(8, 40), x:x + rng.integers(8, 40)] = rng.uniform(60, 250)
+    return img
+
+
+@pytest.mark.cuda
+def test_mog2_and_knn_steps_on_card_equal_cpu(card):
+    from opencv_tpu_torch.ops import bgsegm
+
+    rng = np.random.default_rng(60)
+    bg = _scene_480(rng)
+    frames = [np.clip(bg + rng.normal(0, 2, bg.shape), 0, 255).astype(np.float32) for _ in range(6)]
+    frames[-1][100:160, 200:260] = 240.0
+    mog = {d: bgsegm.init_state(frames[0], device=d) for d in (card, "cpu")}
+    knn = {d: bgsegm.knn_init(frames[0], device=d) for d in (card, "cpu")}
+    for f in frames[1:]:
+        slot = torch.from_numpy(rng.integers(0, 10, f.shape))
+        u = torch.from_numpy(rng.random(f.shape, dtype=np.float32))
+        masks = {}
+        for d in (card, "cpu"):
+            mog[d], m1 = bgsegm.apply(mog[d], f, learning_rate=0.05)
+            knn[d], m2 = bgsegm.knn_apply(knn[d], f, slot=slot.to(d), uniform=u.to(d))
+            masks[d] = (m1.cpu(), m2.cpu())
+        assert float((masks[card][0] == masks["cpu"][0]).float().mean()) >= 0.999
+        assert torch.equal(masks[card][1], masks["cpu"][1])
+    assert int(masks["cpu"][0][100:160, 200:260].sum()) >= 1800  # the new box
+
+
+@pytest.mark.cuda
+def test_clahe_template_phase_distance_on_card_equal_cpu(card):
+    from opencv_tpu_torch.core import imgproc
+    from opencv_tpu_torch.ops import distance, histogram, phasecorr, template
+
+    rng = np.random.default_rng(61)
+    img = _scene_480(rng) + rng.uniform(0, 20, (480, 640)).astype(np.float32)
+    assert torch.equal(histogram.clahe(img, device=card).cpu(), histogram.clahe(img, device="cpu"))
+    tmpl = img[200:264, 300:364]
+    for m in template.METHODS:
+        got = template.match_template(img, tmpl, m, device=card).cpu()
+        want = template.match_template(img, tmpl, m, device="cpu")
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()) + 1e-4
+    smooth = imgproc.gaussian_blur(torch.from_numpy(img), 7, 2.0)
+    moved = torch.roll(smooth, (3, -5), (0, 1))
+    win = phasecorr.create_hanning_window(480, 640, device="cpu")
+    (gx, gy), gr = phasecorr.phase_correlate(smooth, moved, win, device=card)
+    (cx, cy), cr = phasecorr.phase_correlate(smooth, moved, win, device="cpu")
+    assert abs(float(gx) - float(cx)) < 1e-3 and abs(float(gy) - float(cy)) < 1e-3
+    assert abs(float(gx) + 5) < 0.1 and abs(float(gy) - 3) < 0.1
+    mask = img > 100
+    assert torch.equal(distance.distance_transform(mask, device=card).cpu(),
+                       distance.distance_transform(mask, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_nl_means_and_telea_on_card_equal_cpu(card):
+    from opencv_tpu_torch.ops import photo
+
+    rng = np.random.default_rng(62)
+    img = _scene_480(rng)
+    noisy = (img + rng.normal(0, 10, img.shape)).astype(np.float32)
+    crop = np.ascontiguousarray(noisy[:120, :160])
+    d = (photo.nl_means_denoise(crop, device=card).cpu() - photo.nl_means_denoise(crop, device="cpu")).abs()
+    assert float(d.mean()) <= 1e-3 and float(d.max()) <= 1e-2
+    full = photo.nl_means_denoise(noisy, device=card)
+    assert full.shape == (480, 640) and bool(torch.isfinite(full).all())
+    hole = np.zeros(img.shape, bool)
+    hole[200:240, 300:360] = True
+    holed = np.where(hole, 0.0, img).astype(np.float32)
+    d = (photo.inpaint_telea(holed, hole, device=card).cpu()
+         - photo.inpaint_telea(holed, hole, device="cpu")).abs()
+    assert float(d.mean()) <= 1e-3 and float(d.max()) <= 1e-2

@@ -33,8 +33,8 @@ def test_every_slice_module_is_checked():
     """The import checks below walk the whole package; the LK slice's,
     the geometry slice's, the tracking-and-lanes slice's, the
     calibration-app and video-stabilization slice's, the panorama, QR
-    and segmentation slice's and the detectors, stereo and dense-flow
-    slice's modules are among them."""
+    and segmentation slice's, the detectors, stereo and dense-flow
+    slice's and the image-processing group's modules are among them."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for mod in ("ops/lk.py", "ops/gftt.py", "ops/cuda/lk_sample.py", "core/pyramid.py",
                 "slam/vo.py", "geometry/five_point.py", "geometry/epnp.py", "geometry/ap3p.py",
@@ -48,7 +48,10 @@ def test_every_slice_module_is_checked():
                 "ops/qrcode.py", "ops/graphcut.py", "ops/grabcut.py", "ops/watershed.py",
                 "ops/camshift.py", "ops/agast.py", "ops/brisk.py", "ops/akaze.py", "ops/mser.py",
                 "ops/stereo.py", "ops/sgbm.py", "ops/stereo_bp.py", "ops/farneback.py",
-                "ops/tvl1.py", "ops/brox.py", "ops/interpolate.py", "ops/superres.py"):
+                "ops/tvl1.py", "ops/brox.py", "ops/interpolate.py", "ops/superres.py",
+                "ops/histogram.py", "ops/color.py", "ops/colormap.py", "ops/template.py",
+                "ops/phasecorr.py", "ops/distance.py", "ops/contours.py", "ops/shape.py",
+                "ops/lsd.py", "ops/bgsegm.py", "ops/photo.py"):
         assert f"opencv_tpu_torch/{mod}" in names
 
 
@@ -63,16 +66,32 @@ NUMPY_ENTRY_POINTS = ("calibrate_camera", "stereo_calibrate", "calibrate_fisheye
                       "agast_detect", "brisk_detect_and_compute", "akaze_detect_and_compute",
                       "mser_detect", "compute_disparity_bm", "compute_disparity_sgbm", "stereo_bp",
                       "stereo_csbp", "calc_optical_flow_farneback", "calc_optical_flow_tvl1",
-                      "brox_flow", "interpolate_frames", "btv_l1_superres", "btv_l1_superres_flow")
+                      "brox_flow", "interpolate_frames", "btv_l1_superres", "btv_l1_superres_flow",
+                      "calc_hist", "equalize_hist", "clahe", "rgb_to_gray", "rgb_to_hsv",
+                      "hsv_to_rgb", "rgb_to_ycrcb", "rgb_to_lab", "demosaic_bilinear",
+                      "apply_color_map", "get_gabor_kernel", "match_template",
+                      "create_hanning_window", "phase_correlate", "distance_transform",
+                      "flood_fill", "mean_shift_segmentation", "contour_moments", "image_moments",
+                      "contour_area", "arc_length", "bounding_rect", "is_contour_convex",
+                      "fit_ellipse", "fit_line", "match_shapes", "point_polygon_test",
+                      "hausdorff_distance", "shape_context_distance", "fit_tps", "emd_l1",
+                      "detect_lines", "mog2_init_state", "knn_init", "gmg_init", "fgd_init",
+                      "background_state", "nl_means_denoise", "inpaint_diffusion", "merge_mertens",
+                      "seamless_clone", "calibrate_debevec", "calibrate_robertson", "merge_debevec",
+                      "tonemap_reinhard", "align_mtb", "denoise_tvl1", "inpaint_telea", "decolor",
+                      "edge_preserving_filter", "detail_enhance", "stylization", "pencil_sketch")
 
 
 def _numpy_entry_points():
     """{name: call} of every entry point that takes numpy and makes
     tensors, each called with no device."""
+    from opencv_tpu_torch import convert
     from opencv_tpu_torch.geometry import calibration
-    from opencv_tpu_torch.ops import (agast, akaze, brisk, brox, camshift, ccomp, chessboard, ecc,
-                                      farneback, grabcut, hog, interpolate, lsh, mser, qrcode, sgbm,
-                                      stereo, stereo_bp, superres, tvl1, videostab, watershed)
+    from opencv_tpu_torch.ops import (agast, akaze, bgsegm, brisk, brox, camshift, ccomp, chessboard,
+                                      color, colormap, contours, distance, ecc, farneback, grabcut,
+                                      histogram, hog, interpolate, lsd, lsh, mser, phasecorr, photo,
+                                      qrcode, sgbm, shape, stereo, stereo_bp, superres, template, tvl1,
+                                      videostab, watershed)
     from opencv_tpu_torch.optim import minimize
     from opencv_tpu_torch.slam import loop_closure
     from opencv_tpu_torch.stitching import global_stitch, stitcher
@@ -88,6 +107,12 @@ def _numpy_entry_points():
     xy = np.zeros((4, 2), np.float32)
     ok = np.ones(4, bool)
     frame = np.zeros((32, 32), np.float32)
+    rgb = np.zeros((8, 8, 3), np.float32)
+    small = np.zeros((8, 8), np.float32)
+    poly = np.array([[0, 0], [4, 0], [4, 3], [1, 4], [0, 2]], np.float32)
+    hu = np.full(7, 0.1, np.float32)
+    stack = np.zeros((2, 8, 8), np.float32)
+    times = np.array([0.5, 1.0], np.float32)
     return {
         "calibrate_camera": lambda: calibration.calibrate_camera(obj, img, refine_iters=1),
         "stereo_calibrate": lambda: calibration.stereo_calibrate(obj, img, img, K, dist, K, dist),
@@ -147,6 +172,59 @@ def _numpy_entry_points():
         "btv_l1_superres": lambda: superres.btv_l1_superres(frame[None], np.zeros((1, 2))),
         "btv_l1_superres_flow": lambda: superres.btv_l1_superres_flow(
             frame[None], np.zeros((1, 32, 32, 2)), np.zeros((1, 32, 32, 2))),
+        "calc_hist": lambda: histogram.calc_hist(small),
+        "equalize_hist": lambda: histogram.equalize_hist(small),
+        "clahe": lambda: histogram.clahe(small, tile_grid=(2, 2)),
+        "rgb_to_gray": lambda: color.rgb_to_gray(rgb),
+        "rgb_to_hsv": lambda: color.rgb_to_hsv(rgb),
+        "hsv_to_rgb": lambda: color.hsv_to_rgb(rgb),
+        "rgb_to_ycrcb": lambda: color.rgb_to_ycrcb(rgb),
+        "rgb_to_lab": lambda: color.rgb_to_lab(rgb),
+        "demosaic_bilinear": lambda: color.demosaic_bilinear(small),
+        "apply_color_map": lambda: colormap.apply_color_map(small, "jet"),
+        "get_gabor_kernel": lambda: colormap.get_gabor_kernel((5, 5), 1.0, 0.0, 4.0, 0.5),
+        "match_template": lambda: template.match_template(small, small[:3, :3]),
+        "create_hanning_window": lambda: phasecorr.create_hanning_window(8, 8),
+        "phase_correlate": lambda: phasecorr.phase_correlate(small, small),
+        "distance_transform": lambda: distance.distance_transform(small > 0),
+        "flood_fill": lambda: distance.flood_fill(small, (1, 1), 9.0),
+        "mean_shift_segmentation": lambda: distance.mean_shift_segmentation(small, 1, iters=1),
+        "contour_moments": lambda: contours.contour_moments(poly),
+        "image_moments": lambda: contours.image_moments(small),
+        "contour_area": lambda: contours.contour_area(poly),
+        "arc_length": lambda: contours.arc_length(poly),
+        "bounding_rect": lambda: contours.bounding_rect(poly),
+        "is_contour_convex": lambda: contours.is_contour_convex(poly),
+        "fit_ellipse": lambda: contours.fit_ellipse(poly),
+        "fit_line": lambda: contours.fit_line(poly),
+        "match_shapes": lambda: contours.match_shapes(hu, hu),
+        "point_polygon_test": lambda: contours.point_polygon_test(poly, poly),
+        "hausdorff_distance": lambda: shape.hausdorff_distance(poly, poly),
+        "shape_context_distance": lambda: shape.shape_context_distance(poly, poly),
+        "fit_tps": lambda: shape.fit_tps(poly, poly),
+        "emd_l1": lambda: shape.emd_l1(hu, hu),
+        "detect_lines": lambda: lsd.detect_lines(frame),
+        "mog2_init_state": lambda: bgsegm.init_state(small),
+        "knn_init": lambda: bgsegm.knn_init(small),
+        "gmg_init": lambda: bgsegm.gmg_init(8, 8),
+        "fgd_init": lambda: bgsegm.fgd_init(small),
+        "background_state": lambda: convert.background_state(bgsegm.GMGState(stack, 0)),
+        "nl_means_denoise": lambda: photo.nl_means_denoise(small, search_size=3),
+        "inpaint_diffusion": lambda: photo.inpaint_diffusion(small, small > 0, 1),
+        "merge_mertens": lambda: photo.merge_mertens(stack),
+        "seamless_clone": lambda: photo.seamless_clone(small, small, small > 0, 1),
+        "calibrate_debevec": lambda: photo.calibrate_debevec(stack, times, n_samples=4),
+        "calibrate_robertson": lambda: photo.calibrate_robertson(stack, times, 1),
+        "merge_debevec": lambda: photo.merge_debevec(stack, times, np.zeros(256, np.float32)),
+        "tonemap_reinhard": lambda: photo.tonemap_reinhard(small),
+        "align_mtb": lambda: photo.align_mtb(stack, 2),
+        "denoise_tvl1": lambda: photo.denoise_tvl1(small, n_iters=1),
+        "inpaint_telea": lambda: photo.inpaint_telea(small, small > 0),
+        "decolor": lambda: photo.decolor(rgb, 4),
+        "edge_preserving_filter": lambda: photo.edge_preserving_filter(rgb, n_iters=1),
+        "detail_enhance": lambda: photo.detail_enhance(rgb),
+        "stylization": lambda: photo.stylization(rgb),
+        "pencil_sketch": lambda: photo.pencil_sketch(rgb),
     }
 
 
