@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --measure  # two warm runs a path, and the profiles
 
 Phases:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
@@ -23,24 +24,28 @@ Phases:
      device times by CUDA events (kernel, plain version, one PyTorch
      library call where one computes the same function) beside the bound,
      and the first designs' times as labelled constants (FIRST_DESIGN_MS);
-  4. the twenty-one paths, each with the launch counts reset just before each
-     warm run and read just after it:
+  4. the twenty-three paths, each cold, then warm WARM_RUNS times (once;
+     twice with --measure, and then "the median" is of two), with the
+     launch counts reset just before each warm run and read just after it:
      a. ORB VO: VisualOdometry.process_sequence on a seeded 480x640
         synthetic sequence at bench_config5's engine config
         (ORBConfig(n_features=2000), every other default, chunk=8), cold
-        then warm twice (frames/s is the median warm run, printed
+        on the first COLD_FRAMES frames, then warm over all 120
+        (frames/s is the median warm run, printed
         with the range); ATE against ground truth must be < 5 % of the
         path, with >= 10 keyframes and the state `tracking`;
      b. LK: bench.py config 2 on 100 frames of the scene (GFTT 512 corners,
         quality 0.01, min distance 7; LKConfig(win_size=21, n_levels=4);
         build_flow_pyramid once per frame, calc_optical_flow_pyr_lk_pyr,
-        re-detection below 500 tracked), cold then warm twice;
+        re-detection below 500 tracked), cold on COLD_FRAMES frames, then
+        warm;
         checked against the same path on the CPU on 4 pairs (0.05 px,
         >= 99 % equal status) and on frame 0 shifted by (5, 3) px
         (every tracked corner 48 px inside within 0.35 px);
      c. klt VO: VisualOdometry(tracker="klt", n_features=2000).process_
-        sequence over the 120 frames, cold then warm twice (the
-        median warm run, with the range); ATE < 5 % of the path, state `tracking`, frames tracked by LK > 0, K4 launched;
+        sequence over the 120 frames, cold on COLD_FRAMES frames, then warm
+        (the median warm run, with the range); ATE < 5 % of the path,
+        state `tracking`, frames tracked by LK > 0, K4 launched;
      d. twoview: bench.py config 3 with the 5-point and EPnP solvers on
         frames 0 and 8 (ORB, 2-NN, 5-point RANSAC, recoverPose,
         triangulation, correctMatches, EPnP-RANSAC, VVS, AP3P, similarity
@@ -62,22 +67,22 @@ Phases:
         dropped, MotMetrics from frame 5) on its scene under history
         distributions "1" and "7,3" (MOTA > 0.8 for both classes), then
         a crowd of 32 pedestrians and 8 vehicles over 120 frames; cold
-        then warm twice; the CPU's run gives the same confirmed IDs and
+        then warm; the CPU's run gives the same confirmed IDs and
         MOT counters and boxes within 1e-3 px; tracking-only frames/s;
      h. hog: the TBD app in HOG mode: a linear SVM fitted on the port's
         descriptors of 60 + 60 bar windows (tests/test_hog.py's), 120
         frames 480x640 of 6 bar pedestrians, detectMultiScale at the
         reference's defaults (scale 1.05, 64 levels: 28 fit) with the
         hits grouped, a Tracker, MOTA against the planted boxes; HOG
-        detection and frame frames/s; cold (8 frames) then warm twice;
+        detection and frame frames/s; cold (8 frames) then warm;
         4 frames against the CPU (the same boxes, scores within 1e-3);
      i. dbt: DetectionBasedTracker with this detector every 4 frames and
         LK between on the first 32 frames of the scene, cold (8 frames)
-        then warm twice; its level-0 LK must launch K4; 5 frames against the CPU
+        then warm; its level-0 LK must launch K4; 5 frames against the CPU
         (the same confirmed IDs, boxes within 0.05 px, the LK rule);
      j. lane: examples/lane_detection.py at 480x640 on 30 frames (blur,
-        Canny, Hough segments): both lanes in every frame; cold then warm
-        twice; frame 0 against the CPU (equal edges, segments within
+        Canny, Hough segments): both lanes in every frame; cold then warm;
+        frame 0 against the CPU (equal edges, segments within
         0.5 px);
      k. calibapp: examples/calibration_app.py's flow (8 views of its 7x5
         board rendered with warp_perspective at 480x640, seed 0;
@@ -86,19 +91,19 @@ Phases:
         app's verdict: RMS < 0.8 px, fx and fy within 3 %) and a 5x4
         circles-grid view (find_circles_grid: connected components and
         blobs); every board found, verdict OK, circles within 0.5 px of
-        their centres; cold then warm twice; the CPU's corners within
+        their centres; cold then warm; the CPU's corners within
         1e-3 px, its circles grid equal; connected components' sweeps and
         host reads;
      l. stab: videostab.stabilize on 60 frames 480x640 (frame 0 of the
         scene moved by a random walk of N(0, 1.5) px steps; GFTT 200, LK
         at 3 levels: K4 at level 0, affine RANSAC, smoothing radius 5);
-        cold then warm twice; jitter below 0.6 of the input's; the first
+        cold then warm; jitter below 0.6 of the input's; the first
         5 pairs' motions on the CPU within 0.05 px; find_transform_ecc
         ("affine") on 3 pairs against their RANSAC motion, Wiener
         deblurring of one frame, wobble suppression of the motions;
      m. pano: examples/panorama.py's 3 views of 160x200 on the card and
         on the CPU, 5 views of 480x640 (estimate_panorama and
-        stitch_panorama) cold then warm twice, stitch_pair on two of them
+        stitch_panorama) cold then warm, stitch_pair on two of them
         against the CPU; K1 bit for bit against its plain version on
         every view's 4-level ORB pyramid;
      n. qr: examples/qr_demo.py's round trip and 24 scenes of 480x640
@@ -135,13 +140,25 @@ Phases:
         matching, phase correlation, distance transform, flood fill,
         mean-shift segmentation, LSD and shape distances at 480x640;
         card against CPU;
-  5. profile: torch.profiler over frames 40-44 of steady tracking of the
+     v. cascade: a Haar and an LBP cascade trained on the card at the
+        trainer's defaults (24x24, 8 stages) on 1 000 ring objects, written
+        to XML and read back, detect_multi_scale / _lbp on 60 seeded 480x640
+        scenes (recall, precision, frames/s; card against CPU on 3 scenes),
+        tests/test_traincascade.py's small trainings on the card and the
+        CPU (equal models);
+     w. dnn: tests/fixtures/tiny_cnn.onnx against its expected output, and
+        darknet's YOLOv2-tiny-VOC at 416x416 with seeded weights through
+        load_darknet, region decode and NMS at batch 1 and 8 (images/s,
+        FLOPs, share of the f32 peak; card against CPU);
+  5. profile (with --measure only): torch.profiler over frames 24-25 of steady tracking of the
      ORB engine and of the klt engine, one two-view
      pair, one calibrate_camera of 20 views, one warm HOG-mode frame
      (detect and track), one warm calibration-app run, stabilize over
-     8 frames, one 480x640 panorama, one 480x640 GrabCut iteration, one
-     480x640 SGBM disparity, one 480x640 TV-L1 pair, one [bgfg] frame
-     and one 480x640 nl_means_denoise (device busy
+     4 frames, one 480x640 panorama, one 480x640 GrabCut iteration, one
+     480x640 SGBM disparity, one 480x640 TV-L1 pair at one warp a level,
+     one [bgfg] frame
+     and one 480x640 nl_means_denoise, one 480x640 Haar detection and one
+     YOLOv2-tiny-VOC image (device busy
      share, kernels per unit, top kernels, top host operations).
 Prints a JSON line of path results (each with its unit and unit count),
 a JSON line of kernels, the card line, and last {"ok": true, "device":
@@ -170,6 +187,11 @@ sys.path.insert(0, REPO)
 HBM_BYTES_PER_S = 3.35e12
 FP32_ADD_PER_CLK_PER_SM = 128  # FADD; f32 min/max (FMNMX) issue no faster
 POPC_PER_CLK_PER_SM = 16  # 32-bit __popc
+
+# Warm runs of each path after its cold run: one in the default run (the
+# smoke check must end inside its time limit on a slow host), two with
+# --measure (the median and range that PERF.md records, and the profiles)
+WARM_RUNS = 1
 
 # Device ms of the first designs of K1/K2 (one launch per level, runtime
 # arc) and K4/K5 (one block per point), measured by this script before
@@ -725,7 +747,7 @@ def phase_lk_kernels(lvl0, rates: dict) -> dict:
     return rows
 
 
-def phase_main_path(frames, centres, K, warm_runs: int = 2) -> dict:
+def phase_main_path(frames, centres, K) -> dict:
     import torch
 
     from opencv_tpu_torch.core.config import ORBConfig
@@ -735,7 +757,7 @@ def phase_main_path(frames, centres, K, warm_runs: int = 2) -> dict:
     cfg = VOConfig(orb=ORBConfig(n_features=2000))
     n = frames.shape[0]
     t0 = time.perf_counter()
-    VisualOdometry(K, cfg, seed=0).process_sequence(frames, chunk=8)
+    VisualOdometry(K, cfg, seed=0).process_sequence(frames[:COLD_FRAMES], chunk=8)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
 
@@ -743,7 +765,7 @@ def phase_main_path(frames, centres, K, warm_runs: int = 2) -> dict:
         vo = VisualOdometry(K, cfg, seed=0)
         return vo, vo.process_sequence(frames, chunk=8)
 
-    outs, warm_s, runs = warm_runs_of(run, warm_runs)
+    outs, warm_s, runs = warm_runs_of(run, WARM_RUNS)
     for c in runs:
         for k in ("fast_corners", "knn2_hamming"):
             if c[k] <= 0:
@@ -757,13 +779,13 @@ def phase_main_path(frames, centres, K, warm_runs: int = 2) -> dict:
     ate = ate_rmse(traj, centres, with_scale=True)
     res = dict(frames=n, units=n, unit="frame", fps_warm=n / warm,
                fps_warm_runs=[n / t for t in warm_s],
-               warm_s=warm, cold_s=cold, ate=ate, path=path,
+               warm_s=warm, cold_s=cold, cold_frames=COLD_FRAMES, ate=ate, path=path,
                ate_pct=100 * ate / path, keyframes=len(vo.keyframes),
                loop_closures=vo.loop_closures, relocalizations=vo.relocalizations,
                state=vo.state, launches=counts)
     print(f"[main] {n} frames 480x640: warm {warm:.3f} s ({n / warm:.2f} frames/s, median "
-          f"of {warm_runs} runs, range {n / max(warm_s):.2f} to {n / min(warm_s):.2f}), cold "
-          f"{cold:.3f} s; ATE {ate:.5f} = {100 * ate / path:.3f} % of path {path:.3f}; "
+          f"of {WARM_RUNS} runs, range {n / max(warm_s):.2f} to {n / min(warm_s):.2f}), cold "
+          f"{cold:.3f} s on {COLD_FRAMES} frames; ATE {ate:.5f} = {100 * ate / path:.3f} % of path {path:.3f}; "
           f"{len(vo.keyframes)} keyframes, {vo.loop_closures} loop closures, "
           f"{vo.relocalizations} relocalizations; launches {counts}", flush=True)
     if vo.state != "tracking":
@@ -803,7 +825,7 @@ def lk_config2_run(frames_dev, cfg, dev):
     return tracked, redetect
 
 
-def phase_lk_path(frames, warm_runs: int = 2, dev: str = "cuda") -> dict:
+def phase_lk_path(frames, dev: str = "cuda") -> dict:
     """The LK path (bench.py config 2) on the first 100 frames, and its two
     checks: (a) 4 pairs against the same path on the CPU, (b) frame 0
     rolled by (dx, dy) = (5, 3) px, on corners at least 48 px inside
@@ -817,10 +839,10 @@ def phase_lk_path(frames, warm_runs: int = 2, dev: str = "cuda") -> dict:
     clip = torch.from_numpy(np.ascontiguousarray(frames[:100])).to(dev)
     n = clip.shape[0]
     t0 = time.perf_counter()
-    lk_config2_run(clip, cfg, dev)
+    lk_config2_run(clip[:COLD_FRAMES], cfg, dev)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    outs, warm_s, runs = warm_runs_of(lambda: lk_config2_run(clip, cfg, dev), warm_runs)
+    outs, warm_s, runs = warm_runs_of(lambda: lk_config2_run(clip, cfg, dev), WARM_RUNS)
     if any(c["lk_sample"] <= 0 for c in runs):
         fail("kernel lk_sample was not launched on the LK path")
     (tracked, redetect), counts = outs[0], runs[0]
@@ -868,21 +890,21 @@ def phase_lk_path(frames, warm_runs: int = 2, dev: str = "cuda") -> dict:
 
     res = dict(frames=n, units=n, unit="frame", fps_warm=n / warm,
                fps_warm_runs=[n / t for t in warm_s],
-               warm_s=warm, cold_s=cold, tracked_mean=float(np.mean(tracked)),
+               warm_s=warm, cold_s=cold, cold_frames=COLD_FRAMES, tracked_mean=float(np.mean(tracked)),
                tracked_min=int(np.min(tracked)), redetections=redetect,
                k4_launches_per_pair=per_pair, cpu_check_max_px=worst,
                cpu_check_status_agreement=min(agree), shift_check_max_px=shift_err,
                launches=counts)
     print(f"[lk] {n} frames 480x640, GFTT 512 + LK win 21 x 4 levels: warm {warm:.3f} s "
-          f"({n / warm:.2f} frames/s, median of {warm_runs} runs, range "
-          f"{n / max(warm_s):.2f} to {n / min(warm_s):.2f}), cold {cold:.3f} s; tracked per pair "
+          f"({n / warm:.2f} frames/s, median of {WARM_RUNS} runs, range "
+          f"{n / max(warm_s):.2f} to {n / min(warm_s):.2f}), cold {cold:.3f} s on {COLD_FRAMES} frames; tracked per pair "
           f"mean {res['tracked_mean']:.1f}, min {res['tracked_min']}; {redetect} re-detections; "
           f"K4 launches per pair {per_pair:.2f}; launches {counts}", flush=True)
     return res
 
 
-def phase_klt(frames, centres, K, warm_runs: int = 2) -> dict:
-    """The VO engine with the klt tracker, cold then warm `warm_runs`
+def phase_klt(frames, centres, K) -> dict:
+    """The VO engine with the klt tracker, cold then warm WARM_RUNS
     times (frames/s is the median warm run, printed with the range)."""
     import torch
 
@@ -893,14 +915,14 @@ def phase_klt(frames, centres, K, warm_runs: int = 2) -> dict:
     cfg = VOConfig(orb=ORBConfig(n_features=2000), tracker="klt")
     n = frames.shape[0]
     t0 = time.perf_counter()
-    VisualOdometry(K, cfg, seed=0).process_sequence(frames)
+    VisualOdometry(K, cfg, seed=0).process_sequence(frames[:COLD_FRAMES])
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     def run():
         vo = VisualOdometry(K, cfg, seed=0)
         return vo, vo.process_sequence(frames)
 
-    outs, warm_s, runs = warm_runs_of(run, warm_runs)
+    outs, warm_s, runs = warm_runs_of(run, WARM_RUNS)
     if any(c["lk_sample"] <= 0 for c in runs):
         fail("kernel lk_sample was not launched by the klt engine")
     (vo, traj), counts = outs[0], runs[0]
@@ -911,12 +933,12 @@ def phase_klt(frames, centres, K, warm_runs: int = 2) -> dict:
     ate = ate_rmse(traj, centres, with_scale=True)
     res = dict(frames=n, units=n, unit="frame", fps_warm=n / warm,
                fps_warm_runs=[n / t for t in warm_s],
-               warm_s=warm, cold_s=cold, ate=ate, path=path,
+               warm_s=warm, cold_s=cold, cold_frames=COLD_FRAMES, ate=ate, path=path,
                ate_pct=100 * ate / path, keyframes=len(vo.keyframes), lk_tracked=vo.lk_tracked,
                relocalizations=vo.relocalizations, state=vo.state, launches=counts)
     print(f"[klt] {n} frames 480x640: warm {warm:.3f} s ({n / warm:.2f} frames/s, median of "
-          f"{warm_runs} runs, range {n / max(warm_s):.2f} to {n / min(warm_s):.2f}), cold "
-          f"{cold:.3f} s; ATE {ate:.5f} = {100 * ate / path:.3f} % of path {path:.3f}; "
+          f"{WARM_RUNS} runs, range {n / max(warm_s):.2f} to {n / min(warm_s):.2f}), cold "
+          f"{cold:.3f} s on {COLD_FRAMES} frames; ATE {ate:.5f} = {100 * ate / path:.3f} % of path {path:.3f}; "
           f"{len(vo.keyframes)} keyframes, {vo.lk_tracked} frames tracked by LK, "
           f"{vo.relocalizations} relocalizations; launches {counts}", flush=True)
     if vo.state != "tracking":
@@ -1297,7 +1319,6 @@ def phase_lsh(frames, n_db: int = 64, dev: str = "cuda") -> dict:
 
 # ------------------------------------------------------------ tracking and lanes slice
 
-WARM_RUNS = 2  # warm runs of each path of this slice, after one cold run
 # hog's and dbt's cold run takes the scene's first 8 frames: they load every
 # kernel and cuDNN plan of the warm runs (all 28 scales; detector frames
 # and LK frames) at a fraction of a whole run's time
@@ -3732,6 +3753,521 @@ IMGOPS_CPU_TOL = {"lab": 1e-3, "template_rel": 1e-5, "phase": 1e-3, "mss_means":
                   "scd": 1e-4, "hausdorff": 1e-3, "tps": 1e-2, "emd": 1e-6}
 
 
+# ------------------------------------------------------------ detection and inference slice
+
+CASCADE_WIN = 24  # the trainer's default window
+CASCADE_POS = 1000  # positives: ring objects at 24x24
+CASCADE_NEG_IMAGES = (40, 240, 320)  # backgrounds the trainer crops its negatives from
+CASCADE_SCENES = 60  # 480x640 scenes, 1-6 objects each at 1-4x the window
+CASCADE_CPU_SCENES = 3  # card against CPU: raw hits and grouped boxes
+CASCADE_IOU = 0.5
+CLUTTER_PER_MPX = 2000  # shapes per million pixels of the cascade's backgrounds
+# tests/test_traincascade.py's settings (16x16): trained on the card and on the CPU
+SMALL_HAAR = dict(n_pos=400, n_bg=40, kw=dict(window=(16, 16), n_stages=5, max_weak_per_stage=12,
+                                              n_neg_per_stage=600, pos_step=3, size_step=3, seed=1))
+SMALL_LBP = dict(n_pos=300, n_bg=30, kw=dict(window=(16, 16), n_stages=4, max_weak_per_stage=10,
+                                             n_neg_per_stage=500, pos_step=2, seed=2))
+
+
+def ring_object(rng, size: int = CASCADE_WIN, jitter: float = 1.0, ground=None) -> np.ndarray:
+    """tests/test_traincascade.py's object (a bright ring, N(0, 8) noise;
+    the same draws) drawn at size x size: the ring's radius and width
+    scale with size / 16. On its dark ground (grey 40, the test's), or
+    blended over `ground` (a crop of a scene, as opencv_createsamples
+    pastes an object on backgrounds). Rounded to 8 bits."""
+    k = size / 16.0
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    cy = size / 2 - 0.5 + rng.uniform(-jitter, jitter) * k
+    cx = size / 2 - 0.5 + rng.uniform(-jitter, jitter) * k
+    ring = np.exp(-((np.hypot(yy - cy, xx - cx) - 4.5 * k) ** 2) / (3.0 * k * k))
+    base = 40.0 if ground is None else ground * (1.0 - ring)
+    img = base + (170.0 if ground is None else 210.0) * ring + rng.normal(0, 8, (size, size))
+    return np.round(np.clip(img, 0, 255)).astype(np.float32)
+
+
+def blocky_background(rng, h: int = 80, w: int = 80) -> np.ndarray:
+    """tests/test_traincascade.py's background (uniform 20-200 blocks of
+    8 px, N(0, 12) noise; the same draws), rounded to 8 bits."""
+    img = np.kron(rng.uniform(20, 200, (h // 8, w // 8)).astype(np.float32), np.ones((8, 8), np.float32))
+    img += rng.normal(0, 12, (h, w)).astype(np.float32)
+    return np.round(np.clip(img, 0, 255)).astype(np.float32)
+
+
+def cluttered_background(rng, h: int, w: int, per_mpx: int = CLUTTER_PER_MPX) -> np.ndarray:
+    """blocky_background's blocks with shapes over them before the noise:
+    discs, rectangles and arcs of rings (60-330 degrees), radius 3-20
+    px, grey 20-230, `per_mpx` per million pixels. The arcs are the hard
+    negatives of a ring detector. Rounded to 8 bits."""
+    img = np.kron(rng.uniform(20, 200, (h // 8, w // 8)).astype(np.float32), np.ones((8, 8), np.float32))
+    for _ in range(int(per_mpx * h * w / 1e6)):
+        kind, r = int(rng.integers(4)), rng.uniform(3, 20)
+        cy, cx, grey = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(20, 230)
+        y0, y1, x0, x1 = int(max(cy - r - 4, 0)), int(min(cy + r + 4, h)), int(max(cx - r - 4, 0)), int(min(cx + r + 4, w))
+        yy, xx = np.mgrid[y0:y1, x0:x1].astype(np.float32)
+        d = np.hypot(yy - cy, xx - cx)
+        if kind == 0:
+            mask = d <= r
+        elif kind == 1:
+            mask = (np.abs(yy - cy) <= r) & (np.abs(xx - cx) <= r * rng.uniform(0.3, 1.0))
+        else:
+            a0, span, width = rng.uniform(0, 2 * np.pi), rng.uniform(np.pi / 3, 11 * np.pi / 6), rng.uniform(1, 3)
+            mask = (np.abs(d - r) <= width) & ((np.arctan2(yy - cy, xx - cx) - a0) % (2 * np.pi) <= span)
+        img[y0:y1, x0:x1][mask] = grey
+    img += rng.normal(0, 12, (h, w)).astype(np.float32)
+    return np.round(np.clip(img, 0, 255)).astype(np.float32)
+
+
+def cascade_training_set(n_pos: int, n_bg: int, bg_hw=(80, 80), size: int = CASCADE_WIN, seed: int = 0,
+                         clutter: bool = True):
+    """(positives [n_pos, size, size], n_bg backgrounds of bg_hw):
+    cluttered backgrounds, or tests/test_traincascade.py's plain ones."""
+    rng = np.random.default_rng(seed)
+    if not clutter:
+        pos = np.stack([ring_object(rng, size) for _ in range(n_pos)])
+        return pos, [blocky_background(rng, *bg_hw) for _ in range(n_bg)]
+    grounds = cluttered_background(rng, 480, 640)  # the positives' grounds: crops of another scene
+    pos = []
+    for _ in range(n_pos):
+        y, x = int(rng.integers(0, 480 - size)), int(rng.integers(0, 640 - size))
+        pos.append(ring_object(rng, size, ground=grounds[y:y + size, x:x + size]))
+    return np.stack(pos), [cluttered_background(rng, *bg_hw) for _ in range(n_bg)]
+
+
+def cascade_scenes(n: int = CASCADE_SCENES, h: int = 480, w: int = 640, seed: int = 3):
+    """n cluttered 480x640 backgrounds, each with 1-6 ring objects of
+    24-96 px (1-4x the window), none overlapping. Returns (scenes f32
+    [n, h, w], ground-truth (x, y, w, h) boxes per scene)."""
+    rng = np.random.default_rng(seed)
+    scenes, gts = [], []
+    for _ in range(n):
+        img, boxes = cluttered_background(rng, h, w), []
+        for _ in range(int(rng.integers(1, 7))):
+            for _ in range(50):  # a free place
+                s = int(round(CASCADE_WIN * rng.uniform(1.0, 4.0)))
+                x, y = int(rng.integers(0, w - s)), int(rng.integers(0, h - s))
+                if all(x + s <= bx or bx + bs <= x or y + s <= by or by + bs <= y for bx, by, bs, _ in boxes):
+                    img[y:y + s, x:x + s] = ring_object(rng, s, 0.0, ground=img[y:y + s, x:x + s])
+                    boxes.append((x, y, s, s))
+                    break
+        scenes.append(img)
+        gts.append(np.asarray(boxes, np.float64).reshape(-1, 4))
+    return np.stack(scenes), gts
+
+
+def train_both(dev: str, small: bool = False):
+    """(Haar, LBP) cascades trained on `dev` at the trainer's defaults on
+    CASCADE_POS positives and CASCADE_NEG_IMAGES backgrounds, each written
+    to XML with the trainer's writer and read back with the detector's
+    loader, and the seconds each training took. `small`:
+    tests/test_traincascade.py's settings and sizes instead."""
+    import tempfile
+
+    import torch
+
+    from opencv_tpu_torch.ml import traincascade
+    from opencv_tpu_torch.ops import cascade
+
+    out, secs = [], []
+    for kind, cfg in (("haar", SMALL_HAAR), ("lbp", SMALL_LBP)):
+        if small:
+            pos, negs = cascade_training_set(cfg["n_pos"], cfg["n_bg"], size=16, seed=cfg["kw"]["seed"],
+                                             clutter=False)
+            kw = cfg["kw"]
+        else:
+            pos, negs = cascade_training_set(CASCADE_POS, CASCADE_NEG_IMAGES[0], CASCADE_NEG_IMAGES[1:], seed=11)
+            kw = {}
+        train = traincascade.train_cascade if kind == "haar" else traincascade.train_cascade_lbp
+        t0 = time.perf_counter()
+        model = train(pos, negs, device=dev, **kw)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, f"{kind}.xml")
+            if kind == "haar":
+                traincascade.save_opencv_cascade(model, path)
+                out.append(cascade.load_opencv_cascade(path))
+            else:
+                traincascade.save_opencv_lbp_cascade(model, path)
+                out.append(cascade.load_opencv_lbp_cascade(path))
+    return out, secs
+
+
+def same_model(a, b) -> bool:
+    return tuple(a.window) == tuple(b.window) and all(
+        np.array_equal(np.asarray(getattr(a, f)), np.asarray(getattr(b, f))) for f in a._fields[1:])
+
+
+def detect_scenes(scenes_dev, model) -> list:
+    from opencv_tpu_torch.ops import cascade
+
+    detect = cascade.detect_multi_scale if isinstance(model, cascade.CascadeModel) \
+        else cascade.detect_multi_scale_lbp
+    return [detect(s, model)[0] for s in scenes_dev]
+
+
+def phase_cascade(card: str, dev: str = "cuda") -> dict:
+    """[cascade] objdetect's train-then-detect flow: a Haar cascade and an
+    LBP cascade trained on `dev` at the trainer's defaults (24x24 window,
+    8 stages, <= 25 / 20 weak per stage, 1 000 negatives a stage mined from
+    40 backgrounds of 240x320, hit rate 0.995, false alarm 0.5) on 1 000
+    ring objects, written to XML and read back (the model read back is
+    the one used); detect_multi_scale and detect_multi_scale_lbp at their
+    defaults (scale 1.2, groups of > 2) on 60 seeded 480x640 scenes of 1-6
+    objects at 1-4x the window: recall and precision at IoU >= 0.5, warm
+    frames/s (median of WARM_RUNS over the 60 scenes) and a cold run on
+    COLD_FRAMES scenes (unit: a frame). Card against CPU on 3 scenes: raw
+    hits of every scale and grouped boxes equal. tests/test_traincascade.py's
+    small trainings on `dev` and on the CPU: equal models."""
+    import torch
+
+    from opencv_tpu_torch.ops import cascade
+
+    (haar, lbp), train_s = train_both(dev)
+    scenes, gts = cascade_scenes(CASCADE_SCENES)
+    sd = torch_tensor(scenes, dev)
+    res = dict(units=len(scenes), unit="frame", card=card, train_s=train_s,
+               stages=[len(haar.stage_thresholds), len(lbp.stage_thresholds)],
+               stumps=[int(haar.feature.size), int(lbp.feature.size)], launches={})
+    for i, (kind, model) in enumerate((("haar", haar), ("lbp", lbp))):
+        t0 = time.perf_counter()
+        detect_scenes(sd[:COLD_FRAMES], model)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        outs, secs, runs = warm_runs_of(lambda: detect_scenes(sd, model), WARM_RUNS)
+        dets = outs[0]
+        m = sum(box_matches(d, g, CASCADE_IOU) for d, g in zip(dets, gts))
+        n_gt, n_det = sum(len(g) for g in gts), sum(len(d) for d in dets)
+        warm = statistics.median(secs)
+        res[kind] = dict(recall=m / n_gt, precision=m / max(n_det, 1), fps_warm=len(scenes) / warm,
+                         fps_warm_runs=[len(scenes) / s for s in secs], cold_s=cold, cold_frames=COLD_FRAMES,
+                         detections=n_det, objects=n_gt)
+        res["launches"] = _sum_counts(res["launches"], runs[0]) if res["launches"] else runs[0]
+        raw_fn = cascade.raw_hits if kind == "haar" else cascade.raw_hits_lbp
+        t0 = time.perf_counter()
+        equal_raw = equal_boxes = 0
+        n_raw = []
+        for j in range(CASCADE_CPU_SCENES):
+            a, b = raw_fn(sd[j], model), raw_fn(sd[j].cpu(), model)
+            n_raw.append(len(a))
+            equal_raw += a == b
+            equal_boxes += np.array_equal(dets[j], detect_scenes(sd[j:j + 1].cpu(), model)[0])
+        res[kind].update(cpu_equal_raw=equal_raw, cpu_equal_boxes=equal_boxes, cpu_raw_hits=n_raw,
+                         cpu_s=time.perf_counter() - t0)
+        r = res[kind]
+        print(f"[cascade] {kind}: {res['stages'][i]} stages, {res['stumps'][i]} "
+              f"stumps, trained on {dev} in {train_s[i]:.2f} s | {card}; {len(scenes)} scenes "
+              f"480x640, {n_gt} objects: recall {r['recall']:.4f}, precision {r['precision']:.4f} at IoU >= "
+              f"{CASCADE_IOU} ({n_det} detections); warm {r['fps_warm']:.2f} frames/s (median of {WARM_RUNS}, "
+              f"range {min(r['fps_warm_runs']):.2f} to {max(r['fps_warm_runs']):.2f}), cold {cold:.3f} s on "
+              f"{COLD_FRAMES} frames; card vs CPU on {CASCADE_CPU_SCENES} scenes: raw hits equal on "
+              f"{equal_raw} ({n_raw} hits), grouped boxes equal on {equal_boxes} ({r['cpu_s']:.1f} s)",
+              flush=True)
+        if equal_raw != CASCADE_CPU_SCENES or equal_boxes != CASCADE_CPU_SCENES:
+            fail(f"[cascade] {kind}: the card's hits differ from the CPU's")
+        if not r["recall"] > 0 or not r["precision"] > 0:
+            fail(f"[cascade] {kind}: nothing found (recall {r['recall']}, precision {r['precision']})")
+    t0 = time.perf_counter()
+    small_card, _ = train_both(dev, small=True)
+    with torch_threads(1):
+        small_cpu, _ = train_both("cpu", small=True)
+    same = [same_model(a, b) for a, b in zip(small_card, small_cpu)]
+    res["small_training_equal"] = same
+    print(f"[cascade] tests/test_traincascade.py's trainings (16x16; Haar 5 x <= 12, LBP 4 x <= 10) on "
+          f"{dev} and on the CPU: models equal {same}, stages {[len(m.stage_thresholds) for m in small_card]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not all(same):
+        fail("[cascade] the small training on the card differs from the CPU's")
+    return res
+
+
+YOLO_CFG = """
+[net]
+batch=1
+width=416
+height=416
+channels=3
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=64
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=128
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=256
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=512
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=1
+
+[convolutional]
+batch_normalize=1
+filters=1024
+size=3
+stride=1
+pad=1
+activation=leaky
+
+###########
+
+[convolutional]
+batch_normalize=1
+size=3
+stride=1
+pad=1
+filters=1024
+activation=leaky
+
+[convolutional]
+size=1
+stride=1
+pad=1
+filters=125
+activation=linear
+
+[region]
+anchors = 1.08,1.19,  3.42,4.41,  6.63,11.38,  9.42,5.11,  16.62,10.52
+bias_match=1
+classes=20
+coords=4
+num=5
+softmax=1
+jitter=.2
+rescore=1
+
+object_scale=5
+noobject_scale=1
+class_scale=1
+coord_scale=1
+
+absolute=1
+thresh = .6
+random=1
+"""  # darknet's cfg/yolov2-tiny-voc.cfg (its layers and widths)
+FP32_PEAK_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores (NVIDIA data sheet, 700 W)
+DNN_ITERS = 10  # timed pipeline runs per batch size, after one warm-up
+DNN_RTOL = 1e-4
+
+
+def yolo_weights(cfg_text: str, seed: int = 0) -> tuple[bytes, float]:
+    """A darknet .weights stream (version 0.2, int64 seen counter) for
+    `cfg_text` with seeded values: He-scaled kernels, BN scales and
+    variances uniform 0.8-1.2, small biases and means. Returns (the
+    bytes, the FLOPs of one image: 2 x multiply-adds of every
+    convolution at the shapes the cfg gives, VALID max pools)."""
+    import struct
+
+    from opencv_tpu_torch.dnn.darknet_importer import parse_cfg
+
+    rng = np.random.default_rng(seed)
+    secs = parse_cfg(cfg_text)
+    c, h, w = int(secs[0]["channels"]), int(secs[0]["height"]), int(secs[0]["width"])
+    chunks, flops = [struct.pack("<3i", 0, 2, 0), struct.pack("<q", 0)], 0.0
+    for sec in secs[1:]:
+        if sec["type"] == "convolutional":
+            n, k, s = int(sec["filters"]), int(sec.get("size", 1)), int(sec.get("stride", 1))
+            p = k // 2 if int(sec.get("pad", 0)) else 0
+            parts = [rng.normal(0, 0.01, n)]
+            if int(sec.get("batch_normalize", 0)):
+                parts += [rng.uniform(0.8, 1.2, n), rng.normal(0, 0.05, n), rng.uniform(0.8, 1.2, n)]
+            parts.append(rng.normal(0, np.sqrt(2.0 / (c * k * k)), (n, c, k, k)))
+            chunks += [np.asarray(a, np.float32).tobytes() for a in parts]
+            h, w = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+            flops += 2.0 * n * c * k * k * h * w
+            c = n
+        elif sec["type"] == "maxpool":
+            k, s = int(sec.get("size", 2)), int(sec.get("stride", 2))
+            h, w = (h - k) // s + 1, (w - k) // s + 1
+    return b"".join(chunks), flops
+
+
+def yolo_pipeline(net, x):
+    """Forward (region decode included), then NMS per image (iou 0.45,
+    darknet's) on each box's objectness above 0.5: seeded weights leave
+    every class score under the region's 0.6 threshold, so the class
+    scores would give NMS no box. (decoded [N, K, 25], (indices, keep)
+    per image)."""
+    from opencv_tpu_torch.dnn import layers
+
+    net.set_input(x)
+    out = net.forward()
+    kept = []
+    for b in range(out.shape[0]):
+        idx, keep = layers.nms_boxes(out[b, :, :4], out[b, :, 4], 0.45, 0.5)
+        kept.append((idx, keep))
+    return out, kept
+
+
+def _allclose_scaled(a, b, rtol: float = DNN_RTOL) -> tuple[bool, float]:
+    """|a - b| <= rtol * (|b| + max |b|), and the largest |a - b| / max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    scale = np.abs(b).max()
+    return bool((np.abs(a - b) <= rtol * (np.abs(b) + scale)).all()), float(np.abs(a - b).max() / max(scale, 1e-30))
+
+
+def phase_dnn(card: str, dev: str = "cuda", size: int = 416) -> dict:
+    """[dnn] (a) tests/fixtures/tiny_cnn.onnx on its input against its
+    expected output (within 1e-5, tests/test_dnn_fixture.py's bound) and
+    the CPU; (b) darknet's YOLOv2-tiny-VOC cfg (416x416x3, conv 3x3
+    16-512 with BN and leaky each followed by a 2/2 max pool, the last
+    2/1, conv 1024 twice, a 1x1 conv of 125, [region] 20 classes x 5
+    anchors, softmax) through load_darknet with seeded weights, region
+    decode and NMS: images/s warm at batch 1 and 8 (the whole pipeline,
+    median of DNN_ITERS, and the forward alone by CUDA events), the FLOPs
+    from the layer shapes and the share of the card's f32 peak they
+    reach (recorded); card against CPU on one image, TF32 off: the last
+    convolution and the decoded boxes within rtol 1e-4 of the layer's
+    scale. Unit: an image."""
+    import torch
+
+    from opencv_tpu_torch.device import no_tf32
+    from opencv_tpu_torch.dnn import load_darknet, load_onnx
+
+    fix = os.path.join(REPO, "tests", "fixtures")
+    x = np.load(os.path.join(fix, "tiny_cnn_input.npy"))
+    with no_tf32():
+        outs = []
+        for d in (dev, "cpu"):
+            net = load_onnx(os.path.join(fix, "tiny_cnn.onnx"), device=d)
+            net.set_input(x, "input")
+            outs.append(net.forward("out").cpu().numpy())
+    fix_err = float(np.abs(outs[0] - np.load(os.path.join(fix, "tiny_cnn_expected.npy"))).max())
+    fix_cpu = float(np.abs(outs[0] - outs[1]).max())
+    print(f"[dnn] (a) tiny_cnn.onnx on {dev}: largest difference {fix_err:.3g} from the committed "
+          f"expected output (bound 1e-5), {fix_cpu:.3g} from the CPU", flush=True)
+    if not fix_err < 1e-5:
+        fail(f"[dnn] tiny_cnn differs from its expected output by {fix_err}")
+
+    cfg = YOLO_CFG.replace("width=416", f"width={size}").replace("height=416", f"height={size}")
+    weights, flops = yolo_weights(cfg)
+    rng = np.random.default_rng(1)
+    x8 = rng.uniform(0, 1, (8, 3, size, size)).astype(np.float32)
+    res = dict(units=8, unit="image", card=card, gflops_per_image=flops / 1e9)
+    with no_tf32():
+        net = load_darknet(cfg, weights, device=dev)
+        for b in (1, 8):
+            xb = torch_tensor(x8[:b], dev)
+            yolo_pipeline(net, xb)
+            torch.cuda.synchronize()
+            outs, secs, runs = warm_runs_of(lambda: yolo_pipeline(net, xb), DNN_ITERS)
+            fwd_ms = device_time_ms(lambda: (net.set_input(xb), net.forward()), calls=3, trials=10)
+            wall = statistics.median(secs)
+            out, kept = outs[0]
+            n_kept = [int(k.sum()) for _, k in kept]
+            share = flops * b / (fwd_ms * 1e-3) / FP32_PEAK_FLOPS
+            res[f"batch{b}"] = dict(images_s=b / wall, forward_ms=fwd_ms, forward_images_s=b / (fwd_ms * 1e-3),
+                                    f32_peak_share=share, grid=list(out.shape), kept=n_kept)
+            if b == 8:
+                res["launches"] = runs[0]
+            print(f"[dnn] (b) yolov2-tiny-voc {size}x{size} batch {b} on {dev} | {card}: pipeline "
+                  f"{b / wall:.2f} images/s (median of {DNN_ITERS}: forward, region decode, NMS), forward "
+                  f"{fwd_ms:.3f} ms ({b / (fwd_ms * 1e-3):.1f} images/s, CUDA events); {flops / 1e9:.3f} "
+                  f"GFLOP an image from the layer shapes, {100 * share:.2f} % of the f32 peak "
+                  f"({FP32_PEAK_FLOPS / 1e12:.0f} TFLOP/s); output {list(out.shape)}, boxes kept {n_kept}",
+                  flush=True)
+            if not torch.isfinite(out).all():
+                fail("[dnn] non-finite detector output")
+        last = [n for n in net.layer_names() if n.endswith("_convolutional")][-1]
+        got = []
+        for n, d in ((net, dev), (load_darknet(cfg, weights, device="cpu"), "cpu")):
+            n.set_input(torch_tensor(x8[:1], d))
+            got.append((n.forward(last).cpu().numpy(), n.forward().cpu().numpy()))
+    ok_conv, err_conv = _allclose_scaled(got[0][0], got[1][0])
+    ok_box, err_box = _allclose_scaled(got[0][1][..., :5], got[1][1][..., :5])
+    res.update(card_vs_cpu_conv=err_conv, card_vs_cpu_boxes=err_box)
+    print(f"[dnn] card vs CPU, one image, TF32 off: {last} largest difference {err_conv:.3g} of its scale, "
+          f"decoded boxes and objectness {err_box:.3g} (rtol {DNN_RTOL}); launches {res['launches']}",
+          flush=True)
+    if not (ok_conv and ok_box):
+        fail(f"[dnn] the card's output differs from the CPU's ({err_conv}, {err_box})")
+    return res
+
+
+def phase_profile_slice10() -> None:
+    """Where the time goes in one warm Haar detect_multi_scale of a 480x640
+    scene and one warm YOLOv2-tiny-VOC image (batch 1, NMS included)."""
+    import torch
+
+    from opencv_tpu_torch.device import no_tf32
+    from opencv_tpu_torch.dnn import load_darknet
+    from opencv_tpu_torch.ml import traincascade
+    from opencv_tpu_torch.ops import cascade
+
+    pos, negs = cascade_training_set(300, 20, (240, 320), seed=11)
+    haar = traincascade.train_cascade(pos, negs, n_stages=4, device="cuda")
+    scene = torch_tensor(cascade_scenes(1)[0][0], "cuda")
+    cascade.detect_multi_scale(scene, haar)
+    torch.cuda.synchronize()
+    profile_report("profile haar 480x640", lambda: cascade.detect_multi_scale(scene, haar), 1, "frame")
+    weights, _ = yolo_weights(YOLO_CFG)
+    with no_tf32():
+        net = load_darknet(YOLO_CFG, weights, device="cuda")
+        x = torch.rand((1, 3, 416, 416), device="cuda")
+        yolo_pipeline(net, x)
+        torch.cuda.synchronize()
+        profile_report("profile yolov2-tiny batch 1", lambda: yolo_pipeline(net, x), 1, "image")
+
+
 def phase_profile_slice9(base: np.ndarray) -> None:
     """Where the time goes in one warm [bgfg] frame (four models, opening,
     contours, boxes) and in one warm 480x640 nl_means_denoise."""
@@ -3755,7 +4291,9 @@ def phase_profile_slice9(base: np.ndarray) -> None:
 
 def phase_profile_slice8() -> None:
     """Where the time goes in one warm SGBM disparity and one warm TV-L1
-    pair at 480x640."""
+    pair at 480x640 (one warp a level: the profile's post-processing
+    takes ~1 s per thousand kernels, and every warp repeats the same
+    primal-dual steps)."""
     import torch
 
     from opencv_tpu_torch.ops import sgbm, tvl1
@@ -3769,9 +4307,9 @@ def phase_profile_slice8() -> None:
     frames, _, _ = make_sequence(1)
     prev, nxt, _, _ = flow_pair(frames[0])
     a, b = torch.from_numpy(prev).to("cuda"), torch.from_numpy(nxt).to("cuda")
-    tvl1.calc_optical_flow_tvl1(a, b)
+    tvl1.calc_optical_flow_tvl1(a, b, warps=1)
     torch.cuda.synchronize()
-    profile_report("profile tvl1 480x640", lambda: tvl1.calc_optical_flow_tvl1(a, b), 1, "pair")
+    profile_report("profile tvl1 480x640 1 warp", lambda: tvl1.calc_optical_flow_tvl1(a, b, warps=1), 1, "pair")
 
 
 def phase_profile_slice7() -> None:
@@ -3794,7 +4332,7 @@ def phase_profile_slice7() -> None:
 
 def phase_profile_slice6(base: np.ndarray) -> None:
     """Where the time goes in one warm run of the calibration app (8 board
-    views, two calibrations, the circles view) and in stabilize over 8
+    views, two calibrations, the circles view) and in stabilize over 4
     frames."""
     import torch
 
@@ -3803,10 +4341,10 @@ def phase_profile_slice6(base: np.ndarray) -> None:
     views, obj, circles, _ = calibapp_views()
     calibapp_run(views, obj, circles)
     profile_report("profile calibapp", lambda: calibapp_run(views, obj, circles), len(views) + 1, "view")
-    frames = stab_frames(base, 8)
+    frames = stab_frames(base, 4)
     videostab.stabilize(frames)
     torch.cuda.synchronize()
-    profile_report("profile stab", lambda: videostab.stabilize(frames), 8, "frame")
+    profile_report("profile stab", lambda: videostab.stabilize(frames), 4, "frame")
 
 
 def profile_report(tag: str, fn, units: int, unit: str) -> None:
@@ -3898,6 +4436,15 @@ def phase_profile_hog() -> None:
 
 
 def main():
+    import argparse
+
+    global WARM_RUNS
+    ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port on one card.")
+    ap.add_argument("--measure", action="store_true",
+                    help="two warm runs a path (median and range) and the torch.profiler phases")
+    args = ap.parse_args()
+    if args.measure:
+        WARM_RUNS = 2
     card, rates = phase_device()
     try:
         import torch  # noqa: F401
@@ -3940,15 +4487,20 @@ def main():
              "flow": timed("flow", phase_flow, frames[0], card),
              "bgfg": timed("bgfg", phase_bgfg, frames[0], card),
              "photo": timed("photo", phase_photo, frames[0], card),
-             "imgops": timed("imgops", phase_imgops, frames[0], card)}
-    timed("profile orb", phase_profile, frames, K, "orb", 40, 4)
-    timed("profile klt", phase_profile, frames, K, "klt", 40, 4)
-    timed("profile geometry", phase_profile_geometry, frames, K)
-    timed("profile hog", phase_profile_hog)
-    timed("profile calibapp and stab", phase_profile_slice6, frames[0])
-    timed("profile pano and grabcut", phase_profile_slice7)
-    timed("profile sgbm and tvl1", phase_profile_slice8)
-    timed("profile bgfg and nl_means", phase_profile_slice9, frames[0])
+             "imgops": timed("imgops", phase_imgops, frames[0], card),
+             "cascade": timed("cascade", phase_cascade, card),
+             "dnn": timed("dnn", phase_dnn, card)}
+    if args.measure:
+        timed("profile orb", phase_profile, frames, K, "orb", 24, 2)
+        timed("profile klt", phase_profile, frames, K, "klt", 24, 2)
+        timed("profile geometry", phase_profile_geometry, frames, K)
+        timed("profile hog", phase_profile_hog)
+        timed("profile calibapp and stab", phase_profile_slice6, frames[0])
+        timed("profile pano and grabcut", phase_profile_slice7)
+        timed("profile sgbm and tvl1", phase_profile_slice8)
+        timed("profile bgfg and nl_means", phase_profile_slice9, frames[0])
+        timed("profile haar and yolo", phase_profile_slice10)
+    print(f"[time] total: {time.perf_counter() - t_start:.1f} s of phases", flush=True)
     kernels = []
     for key, row in rows.items():
         by_path = {p: res["launches"][key] for p, res in paths.items()}

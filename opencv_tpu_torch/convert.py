@@ -7,9 +7,12 @@ nested dict with `dataclasses.asdict` on a JAX config and rebuild the
 port's config from it here, feed both engines the same landmark map
 through `load_map`, both trackers the same snapshot through
 `tracker_snapshot`, both detectors the same weights through
-`hog_detector`, and both background subtractors the same mid-sequence
-state through `background_state`. Everything arrives as
-numpy or plain Python; nothing here imports the JAX package.
+`hog_detector`, both background subtractors the same mid-sequence
+state through `background_state`, and both cascade detectors the same
+trained cascade through `cascade_model` / `lbp_cascade_model`.
+Everything arrives as numpy or plain Python; nothing here imports the
+JAX package. DNN weights cross in the model files themselves: the same
+ONNX, Darknet, Caffe or TF bytes go through both packages' importers.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from opencv_tpu_torch.core.config import LKConfig, MatchConfig, ORBConfig
 from opencv_tpu_torch.device import resolve_device
 from opencv_tpu_torch.ops import bgsegm
+from opencv_tpu_torch.ops.cascade import CascadeModel, LBPCascadeModel
 from opencv_tpu_torch.slam.vo import VOConfig
 from opencv_tpu_torch.tbd.tracker import Track
 
@@ -96,3 +100,33 @@ def background_state(state, device=None):
         v = np.asarray(getattr(state, f))
         vals.append(int(v) if v.ndim == 0 else torch.as_tensor(np.array(v, np.float32), device=dev))
     return cls(*vals)
+
+
+def cascade_model(m) -> CascadeModel:
+    """A JAX `CascadeModel` (numpy fields) as the port's: copied arrays of
+    the same dtypes, the window as a tuple of ints."""
+    return CascadeModel(
+        window=tuple(int(v) for v in m.window),
+        rects=np.array(m.rects, np.float32),
+        feature=np.array(m.feature, np.int32),
+        threshold=np.array(m.threshold, np.float32),
+        left=np.array(m.left, np.float32),
+        right=np.array(m.right, np.float32),
+        stage_offsets=np.array(m.stage_offsets, np.int32),
+        stage_thresholds=np.array(m.stage_thresholds, np.float32),
+    )
+
+
+def lbp_cascade_model(m) -> LBPCascadeModel:
+    """A JAX `LBPCascadeModel` as the port's; the subset words keep their
+    bits as uint32 (from uint32 or the XML's signed int32)."""
+    return LBPCascadeModel(
+        window=tuple(int(v) for v in m.window),
+        rects=np.array(m.rects, np.int32),
+        feature=np.array(m.feature, np.int32),
+        subsets=np.asarray(m.subsets).astype(np.int64).astype(np.uint32),
+        left=np.array(m.left, np.float32),
+        right=np.array(m.right, np.float32),
+        stage_offsets=np.array(m.stage_offsets, np.int32),
+        stage_thresholds=np.array(m.stage_thresholds, np.float32),
+    )

@@ -129,6 +129,28 @@ def _block_scan(x: torch.Tensor) -> torch.Tensor:
     return (inner + offset[..., None]).reshape(x.shape[:-1] + (nb * _SCAN_BLOCK,))[..., :n]
 
 
+_REDUCE_WINDOW = 32  # XLA's CPU tree rewrite of a long reduction sums windows of 32
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in the order XLA's CPU backend computes
+    jnp.sum: up to 32 elements left to right; a longer axis is padded
+    with zeros (half the padding, rounded down, in front) to windows of
+    32, each window summed left to right, and the window sums reduced
+    the same way (recursively). Only f32 adds, so either device gives
+    the same bits (torch.sum orders otherwise on each)."""
+    n = x.shape[-1]
+    if n <= _REDUCE_WINDOW:
+        out = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        for k in range(n):
+            out = out + x[..., k]
+        return out
+    nb = -(-n // _REDUCE_WINDOW)
+    pad = nb * _REDUCE_WINDOW - n
+    blocks = F.pad(x, (pad // 2, pad - pad // 2)).reshape(x.shape[:-1] + (nb, _REDUCE_WINDOW))
+    return xla_sum(xla_sum(blocks))
+
+
 def box_sum_integral(img: torch.Tensor, ksize: int) -> torch.Tensor:
     """(2r+1)^2 un-normalized box sum via two prefix sums; zero outside.
     The prefix sums run in eager JAX's order (`_block_scan`: bit-equal to

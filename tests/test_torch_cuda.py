@@ -16,7 +16,9 @@ mean shift and CamShift) on the card against the CPU; K3 at 512 bits, K2
 at BRISK's level shapes, AGAST, BRISK, AKAZE, SGBM and TV-L1, and the
 image-processing group (MOG2 and KNN steps, CLAHE, template matching,
 phase correlation, the distance transform, NLM and Telea inpainting at
-480x640) on the card against the CPU.
+480x640) on the card against the CPU; the cascade trainer, the Haar and
+LBP detectors and the dnn importers (the tiny_cnn ONNX fixture, a Darknet
+region net) on the card against the CPU.
 
 This file imports neither jax nor the JAX package, so that it runs on a
 machine that has only PyTorch:
@@ -1122,3 +1124,129 @@ def test_nl_means_and_telea_on_card_equal_cpu(card):
     d = (photo.inpaint_telea(holed, hole, device=card).cpu()
          - photo.inpaint_telea(holed, hole, device="cpu")).abs()
     assert float(d.mean()) <= 1e-3 and float(d.max()) <= 1e-2
+
+
+def _ring(rng, size=16):
+    """tests/test_traincascade.py's object (that file imports jax)."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    cy, cx = size / 2 - 0.5 + rng.uniform(-1, 1), size / 2 - 0.5 + rng.uniform(-1, 1)
+    ring = np.exp(-((np.hypot(yy - cy, xx - cx) - 4.5) ** 2) / 3.0)
+    return np.round(np.clip(40 + 170 * ring + rng.normal(0, 8, (size, size)), 0, 255)).astype(np.float32)
+
+
+def _blocks(rng, h=80, w=80):
+    img = np.kron(rng.uniform(20, 200, (h // 8, w // 8)).astype(np.float32), np.ones((8, 8), np.float32))
+    return np.round(np.clip(img + rng.normal(0, 12, (h, w)), 0, 255)).astype(np.float32)
+
+
+def _cascade_data(seed=0, n_pos=150, n_bg=15):
+    rng = np.random.default_rng(seed)
+    return np.stack([_ring(rng) for _ in range(n_pos)]), [_blocks(rng) for _ in range(n_bg)]
+
+
+@pytest.mark.cuda
+def test_cascade_trainings_and_detections_on_card_equal_cpu(card):
+    """The trainer on the card gives the CPU's models (Haar and LBP, 3
+    stages x <= 6 weak at 16x16), and the detectors' raw hits and grouped
+    boxes on a 240x320 scene equal the CPU's."""
+    from opencv_tpu_torch.ml import traincascade
+    from opencv_tpu_torch.ops import cascade
+
+    pos, negs = _cascade_data()
+    kw = dict(window=(16, 16), n_stages=3, max_weak_per_stage=6, n_neg_per_stage=300, seed=1)
+    rng = np.random.default_rng(2)
+    scene = _blocks(rng, 240, 320)
+    scene[50:66, 80:96] = _ring(rng)
+    scene[120:152, 200:232] = np.kron(_ring(rng), np.ones((2, 2), np.float32))
+    for train, raw, detect in ((traincascade.train_cascade, cascade.raw_hits, cascade.detect_multi_scale),
+                               (traincascade.train_cascade_lbp, cascade.raw_hits_lbp,
+                                cascade.detect_multi_scale_lbp)):
+        m_card, m_cpu = train(pos, negs, device=card, **kw), train(pos, negs, device="cpu", **kw)
+        for f in m_cpu._fields[1:]:
+            np.testing.assert_array_equal(getattr(m_card, f), getattr(m_cpu, f), err_msg=f)
+        hits = raw(torch.from_numpy(scene).to(card), m_cpu)
+        assert hits and hits == raw(torch.from_numpy(scene), m_cpu)
+        for a, b in zip(detect(torch.from_numpy(scene).to(card), m_cpu), detect(torch.from_numpy(scene), m_cpu)):
+            np.testing.assert_array_equal(a, b)
+
+
+_DNN_CFG = """
+[net]
+width=64
+height=64
+channels=3
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=1
+
+[convolutional]
+filters=27
+size=1
+stride=1
+pad=1
+activation=linear
+
+[region]
+anchors = 1.0,1.5, 2.0,2.0, 3.5,2.5
+classes=4
+num=3
+softmax=1
+thresh=0.2
+"""
+
+
+@pytest.mark.cuda
+def test_dnn_on_card_equals_cpu(card):
+    """tests/fixtures/tiny_cnn.onnx on the card within 1e-5 of its expected
+    output, and a small Darknet region net (BN, leaky, strided conv,
+    2/1 max pool, region decode) within rtol 1e-4 of the CPU's, TF32 off."""
+    import os
+    import struct
+
+    from opencv_tpu_torch.device import no_tf32
+    from opencv_tpu_torch.dnn import load_darknet, load_onnx
+
+    fix = os.path.join(os.path.dirname(__file__), "fixtures")
+    x = np.load(os.path.join(fix, "tiny_cnn_input.npy"))
+    rng = np.random.default_rng(0)
+    arrs = []
+    for cout, cin, k, bn in ((16, 3, 3, True), (32, 16, 3, True), (27, 32, 1, False)):
+        arrs.append(rng.normal(0, 0.1, cout))
+        if bn:
+            arrs += [rng.uniform(0.8, 1.2, cout), rng.normal(0, 0.05, cout), rng.uniform(0.8, 1.2, cout)]
+        arrs.append(rng.normal(0, np.sqrt(2.0 / (cin * k * k)), (cout, cin, k, k)))
+    weights = struct.pack("<3i", 0, 2, 0) + struct.pack("<q", 0) + b"".join(
+        np.asarray(a, np.float32).tobytes() for a in arrs)
+    img = rng.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
+    with no_tf32():
+        net = load_onnx(os.path.join(fix, "tiny_cnn.onnx"), device=card)
+        net.set_input(x, "input")
+        got = net.forward("out").cpu().numpy()
+        assert np.abs(got - np.load(os.path.join(fix, "tiny_cnn_expected.npy"))).max() < 1e-5
+        outs = []
+        for dev in (card, "cpu"):
+            dn = load_darknet(_DNN_CFG, weights, device=dev)
+            dn.set_input(img)
+            outs.append(dn.forward().cpu().numpy())
+    np.testing.assert_allclose(outs[0][..., :5], outs[1][..., :5], rtol=1e-4, atol=1e-5)

@@ -34,7 +34,8 @@ def test_every_slice_module_is_checked():
     the geometry slice's, the tracking-and-lanes slice's, the
     calibration-app and video-stabilization slice's, the panorama, QR
     and segmentation slice's, the detectors, stereo and dense-flow
-    slice's and the image-processing group's modules are among them."""
+    slice's, the image-processing group's and the detection-and-inference
+    slice's modules are among them."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for mod in ("ops/lk.py", "ops/gftt.py", "ops/cuda/lk_sample.py", "core/pyramid.py",
                 "slam/vo.py", "geometry/five_point.py", "geometry/epnp.py", "geometry/ap3p.py",
@@ -51,7 +52,10 @@ def test_every_slice_module_is_checked():
                 "ops/tvl1.py", "ops/brox.py", "ops/interpolate.py", "ops/superres.py",
                 "ops/histogram.py", "ops/color.py", "ops/colormap.py", "ops/template.py",
                 "ops/phasecorr.py", "ops/distance.py", "ops/contours.py", "ops/shape.py",
-                "ops/lsd.py", "ops/bgsegm.py", "ops/photo.py"):
+                "ops/lsd.py", "ops/bgsegm.py", "ops/photo.py", "ops/cascade.py",
+                "ml/__init__.py", "ml/traincascade.py", "dnn/__init__.py", "dnn/proto.py",
+                "dnn/layers.py", "dnn/net.py", "dnn/onnx_importer.py", "dnn/darknet_importer.py",
+                "dnn/caffe_importer.py", "dnn/tf_importer.py"):
         assert f"opencv_tpu_torch/{mod}" in names
 
 
@@ -79,7 +83,10 @@ NUMPY_ENTRY_POINTS = ("calibrate_camera", "stereo_calibrate", "calibrate_fisheye
                       "background_state", "nl_means_denoise", "inpaint_diffusion", "merge_mertens",
                       "seamless_clone", "calibrate_debevec", "calibrate_robertson", "merge_debevec",
                       "tonemap_reinhard", "align_mtb", "denoise_tvl1", "inpaint_telea", "decolor",
-                      "edge_preserving_filter", "detail_enhance", "stylization", "pencil_sketch")
+                      "edge_preserving_filter", "detail_enhance", "stylization", "pencil_sketch",
+                      "cascade_score_map", "cascade_detect_multi_scale", "lbp_score_map",
+                      "detect_multi_scale_lbp", "train_cascade", "train_cascade_lbp", "Net",
+                      "load_onnx", "load_darknet", "load_caffe", "load_tf", "prior_box")
 
 
 def _numpy_entry_points():
@@ -87,7 +94,9 @@ def _numpy_entry_points():
     tensors, each called with no device."""
     from opencv_tpu_torch import convert
     from opencv_tpu_torch.geometry import calibration
-    from opencv_tpu_torch.ops import (agast, akaze, bgsegm, brisk, brox, camshift, ccomp, chessboard,
+    from opencv_tpu_torch import dnn
+    from opencv_tpu_torch.ml import traincascade
+    from opencv_tpu_torch.ops import (agast, akaze, bgsegm, brisk, brox, camshift, cascade, ccomp, chessboard,
                                       color, colormap, contours, distance, ecc, farneback, grabcut,
                                       histogram, hog, interpolate, lsd, lsh, mser, phasecorr, photo,
                                       qrcode, sgbm, shape, stereo, stereo_bp, superres, template, tvl1,
@@ -113,6 +122,15 @@ def _numpy_entry_points():
     hu = np.full(7, 0.1, np.float32)
     stack = np.zeros((2, 8, 8), np.float32)
     times = np.array([0.5, 1.0], np.float32)
+    haar = cascade.CascadeModel((4, 4), np.zeros((1, 3, 5), np.float32), np.zeros(1, np.int32),
+                                np.zeros(1, np.float32), np.zeros(1, np.float32), np.ones(1, np.float32),
+                                np.array([0, 1], np.int32), np.zeros(1, np.float32))
+    lbp = cascade.LBPCascadeModel((3, 3), np.array([[0, 0, 1, 1]], np.int32), np.zeros(1, np.int32),
+                                  np.zeros((1, 8), np.uint32), np.zeros(1, np.float32),
+                                  np.ones(1, np.float32), np.array([0, 1], np.int32),
+                                  np.zeros(1, np.float32))
+    crops = np.zeros((4, 8, 8), np.float32)
+    onnx = dnn.proto.field_bytes(7, b"")
     return {
         "calibrate_camera": lambda: calibration.calibrate_camera(obj, img, refine_iters=1),
         "stereo_calibrate": lambda: calibration.stereo_calibrate(obj, img, img, K, dist, K, dist),
@@ -225,6 +243,18 @@ def _numpy_entry_points():
         "detail_enhance": lambda: photo.detail_enhance(rgb),
         "stylization": lambda: photo.stylization(rgb),
         "pencil_sketch": lambda: photo.pencil_sketch(rgb),
+        "cascade_score_map": lambda: cascade.cascade_score_map(small, haar),
+        "cascade_detect_multi_scale": lambda: cascade.detect_multi_scale(small, haar),
+        "lbp_score_map": lambda: cascade.lbp_score_map(small, lbp),
+        "detect_multi_scale_lbp": lambda: cascade.detect_multi_scale_lbp(small, lbp),
+        "train_cascade": lambda: traincascade.train_cascade(crops, [small], window=(8, 8)),
+        "train_cascade_lbp": lambda: traincascade.train_cascade_lbp(crops, [small], window=(8, 8)),
+        "Net": lambda: dnn.Net(),
+        "load_onnx": lambda: dnn.load_onnx(onnx),
+        "load_darknet": lambda: dnn.load_darknet("[net]\n"),
+        "load_caffe": lambda: dnn.load_caffe(""),
+        "load_tf": lambda: dnn.load_tf(b""),
+        "prior_box": lambda: dnn.layers.prior_box(2, 2, 8, 8, 4.0),
     }
 
 
