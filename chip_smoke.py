@@ -24,7 +24,7 @@ Phases:
      device times by CUDA events (kernel, plain version, one PyTorch
      library call where one computes the same function) beside the bound,
      and the first designs' times as labelled constants (FIRST_DESIGN_MS);
-  4. the twenty-three paths, each cold, then warm WARM_RUNS times (once;
+  4. the twenty-five paths, each cold, then warm WARM_RUNS times (once;
      twice with --measure, and then "the median" is of two), with the
      launch counts reset just before each warm run and read just after it:
      a. ORB VO: VisualOdometry.process_sequence on a seeded 480x640
@@ -149,7 +149,20 @@ Phases:
      w. dnn: tests/fixtures/tiny_cnn.onnx against its expected output, and
         darknet's YOLOv2-tiny-VOC at 416x416 with seeded weights through
         load_darknet, region decode and NMS at batch 1 and 8 (images/s,
-        FLOPs, share of the f32 peak; card against CPU);
+        FLOPs, share of the f32 peak; card against CPU); then at torch's
+        default TF32 switches: the unguarded layers' error and forward
+        time (what TF32 would give), and the repaired Net.forward held to
+        the CPU;
+     x. clip: bench.py config 2 on the first 100 frames of the committed
+        benchmarks/data/megamind_gray.avi at 528x720, decoded by the
+        port's reader with PIL blocked and held to the JAX reader's
+        SHA-256; K4 launched; 4 pairs against the CPU (the LK rule);
+     y. ml: letter_recog's models at its size on seeded data (kNN, naive
+        Bayes, MLP, random forest; linear and RBF SVM, logistic
+        regression, SVMSGD, AdaBoost and GBT on one letter against the
+        rest), k-means of 100 000 descriptor rows, GMM EM; accuracies
+        within 0.01 of the JAX package's (tools/jax_slice11_figures.py);
+        card against CPU on a 2 000-row subset with the same draws;
   5. profile (with --measure only): torch.profiler over frames 24-25 of steady tracking of the
      ORB engine and of the klt engine, one two-view
      pair, one calibrate_camera of 20 views, one warm HOG-mode frame
@@ -201,6 +214,12 @@ WARM_RUNS = 1
 # record.
 FIRST_DESIGN_MS = {"fast_corners": 0.1119, "fast_score": 0.0179, "lk_sample": 0.0601,
                    "lk_sample_n512": 0.0232, "lk_sample_clamp": 0.0044}
+
+# SHA-256 of the first 100 frames of benchmarks/data/megamind_gray.avi as
+# the JAX package's reader (PIL) decodes them, uint8 [100, 528, 720] in C
+# order; [clip] holds the port's decode on the card's host to it, and
+# tests/test_torch_io.py holds it to the JAX reader
+CLIP_SHA256 = "91a889b955006465fafa0f4c1d981b35fbca642ea72cdca41652e3698d89486f"
 
 # K4's point counts: the LK path's 2000 and 512, DetectionBasedTracker's 32,
 # videostab's 200 (GFTT's max_corners)
@@ -349,9 +368,15 @@ def phase_device():
     ).stdout.split()
     sm_hz = float(clock[0]) * 1e6 if clock and clock[0].isdigit() else 1.98e9  # data sheet
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        import PIL
+
+        pil = f"PIL {PIL.__version__} imports"
+    except ImportError:
+        pil = "PIL does not import"
     print(f"[device] {card} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()} | {n_sm} SMs, "
-          f"max SM clock {sm_hz / 1e6:.0f} MHz", flush=True)
+          f"max SM clock {sm_hz / 1e6:.0f} MHz | {pil}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return card, dict(fp32_add=FP32_ADD_PER_CLK_PER_SM * n_sm * sm_hz,
@@ -825,6 +850,33 @@ def lk_config2_run(frames_dev, cfg, dev):
     return tracked, redetect
 
 
+def lk_card_vs_cpu(clip, cfg, dev: str, n_pairs: int = 4):
+    """The first `n_pairs` pairs of `clip` through calc_optical_flow_pyr_lk
+    on the card and on the CPU from the same GFTT corners, each pair
+    starting from the card's tracks. Returns (largest difference in px
+    over points tracked in both, status agreement per pair, points
+    tracked in both)."""
+    from opencv_tpu_torch.ops import gftt, lk
+
+    kp = gftt.good_features_to_track(clip[0], max_corners=512, quality_level=0.01,
+                                     min_distance=7.0, device=dev)
+    pts, valid = kp.xy, kp.valid
+    worst, agree, n_both = 0.0, [], 0
+    for f in range(n_pairs):
+        a, b = clip[f], clip[f + 1]
+        g_new, g_st, _ = lk.calc_optical_flow_pyr_lk(a, b, pts, valid, cfg, device=dev)
+        c_new, c_st, _ = lk.calc_optical_flow_pyr_lk(a.cpu(), b.cpu(), pts.cpu(), valid.cpu(),
+                                                     cfg, device="cpu")
+        g_new, g_st = g_new.cpu(), g_st.cpu()
+        both = g_st & c_st
+        agree.append(float((g_st == c_st)[valid.cpu()].float().mean()))
+        n_both += int(both.sum())
+        if both.any():
+            worst = max(worst, float((g_new - c_new)[both].abs().max()))
+        pts, valid = g_new.to(dev), g_st.to(dev)
+    return worst, agree, n_both
+
+
 def phase_lk_path(frames, dev: str = "cuda") -> dict:
     """The LK path (bench.py config 2) on the first 100 frames, and its two
     checks: (a) 4 pairs against the same path on the CPU, (b) frame 0
@@ -850,22 +902,7 @@ def phase_lk_path(frames, dev: str = "cuda") -> dict:
     per_pair = counts["lk_sample"] / (n - 1)
 
     # (a) 4 pairs: the card against the port on the CPU, the same points
-    kp = gftt.good_features_to_track(clip[0], max_corners=512, quality_level=0.01,
-                                     min_distance=7.0, device=dev)
-    pts, valid = kp.xy, kp.valid
-    worst, agree, n_both = 0.0, [], 0
-    for f in range(4):
-        a, b = clip[f], clip[f + 1]
-        g_new, g_st, _ = lk.calc_optical_flow_pyr_lk(a, b, pts, valid, cfg, device=dev)
-        c_new, c_st, _ = lk.calc_optical_flow_pyr_lk(a.cpu(), b.cpu(), pts.cpu(), valid.cpu(),
-                                                     cfg, device="cpu")
-        g_new, g_st = g_new.cpu(), g_st.cpu()
-        both = g_st & c_st
-        agree.append(float((g_st == c_st)[valid.cpu()].float().mean()))
-        n_both += int(both.sum())
-        if both.any():
-            worst = max(worst, float((g_new - c_new)[both].abs().max()))
-        pts, valid = g_new.to(dev), g_st.to(dev)
+    worst, agree, n_both = lk_card_vs_cpu(clip, cfg, dev)
     print(f"[lk] (a) 4 pairs, card vs CPU: {n_both} points tracked in both, largest "
           f"difference {worst:.3g} px, status agreement {min(agree):.4f} (worst pair)", flush=True)
     if not worst <= 0.05:
@@ -4235,12 +4272,536 @@ def phase_dnn(card: str, dev: str = "cuda", size: int = 416) -> dict:
     ok_conv, err_conv = _allclose_scaled(got[0][0], got[1][0])
     ok_box, err_box = _allclose_scaled(got[0][1][..., :5], got[1][1][..., :5])
     res.update(card_vs_cpu_conv=err_conv, card_vs_cpu_boxes=err_box)
+    res["tf32"] = dnn_tf32_figures(net, x8, last, got[1][0], dev, res)
     print(f"[dnn] card vs CPU, one image, TF32 off: {last} largest difference {err_conv:.3g} of its scale, "
           f"decoded boxes and objectness {err_box:.3g} (rtol {DNN_RTOL}); launches {res['launches']}",
           flush=True)
     if not (ok_conv and ok_box):
         fail(f"[dnn] the card's output differs from the CPU's ({err_conv}, {err_box})")
     return res
+
+
+# ------------------------------------------------------------ [clip], [ml]
+
+CLIP_FRAMES = 100
+CLIP_BASELINE_FPS = 83.12  # OpenCV 5.0.0 on a 2-CPU host, benchmarks/baselines_measured.json
+
+
+@contextlib.contextmanager
+def pil_blocked():
+    """`import PIL` raises inside the block, whether or not PIL is
+    installed: what runs there cannot be using it."""
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules) if k == "PIL" or k.startswith("PIL.")}
+    sys.modules["PIL"] = None
+    try:
+        yield
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(saved)
+
+
+def clip_frames() -> tuple[np.ndarray, float]:
+    """The first CLIP_FRAMES frames of the committed clip, decoded by the
+    port's read_mjpeg_avi with PIL blocked; fails unless their SHA-256 is
+    CLIP_SHA256 (the JAX reader's). Returns (u8 [100, 528, 720], host
+    seconds of the decode)."""
+    import hashlib
+
+    from opencv_tpu_torch.io.video import read_mjpeg_avi
+
+    path = os.path.join(REPO, "benchmarks", "data", "megamind_gray.avi")
+    t0 = time.perf_counter()
+    with pil_blocked():
+        frames = read_mjpeg_avi(path, max_frames=CLIP_FRAMES)
+    secs = time.perf_counter() - t0
+    digest = hashlib.sha256(np.ascontiguousarray(frames).tobytes()).hexdigest()
+    if digest != CLIP_SHA256:
+        fail(f"[clip] decoded frames' SHA-256 {digest} is not the JAX reader's {CLIP_SHA256}")
+    return frames, secs
+
+
+def k4_clip_check(clip, cfg, dev) -> dict:
+    """K4 held bit for bit against its plain version at the [clip] path's
+    own calls: one pair (frames 1 -> 2, from GFTT's 512 points on frame 1;
+    frame 0 is black) through calc_optical_flow_pyr_lk with the wrapper's
+    calls recorded, then each recorded call (templates, patch and polish at
+    levels 0 and 1 of 528x720, the two levels over the gate) replayed
+    through the kernel and through sample_channels_plain. Fails on any
+    difference or a missing site. These launches are checks, outside the
+    path's counted run. Returns dict(shapes=[[C, H, W, N, win], ...],
+    max_abs_err)."""
+    import torch
+
+    from opencv_tpu_torch.ops import gftt, lk
+    from opencv_tpu_torch.ops.cuda import lk_sample
+
+    calls = []
+    kernel = lk_sample.sample_channels
+
+    def record(chans, pts, win=21):
+        chans = list(chans)
+        calls.append((chans, pts.clone(), win))
+        return kernel(chans, pts, win)
+
+    kp = gftt.good_features_to_track(clip[1], max_corners=512, quality_level=0.01,
+                                     min_distance=7.0, device=dev)
+    lk_sample.sample_channels = record
+    try:
+        lk.calc_optical_flow_pyr_lk(clip[1], clip[2], kp.xy, kp.valid, cfg, device=dev)
+    finally:
+        lk_sample.sample_channels = kernel
+    shapes, err, sites = [], 0.0, set()
+    for chans, pts, win in calls:
+        got = kernel(chans, pts, win)
+        want = lk_sample.sample_channels_plain(torch.stack(chans), pts, win)
+        _sync(dev)
+        shape = [len(chans), *chans[0].shape, pts.shape[0], win]
+        if not torch.equal(got, want):
+            fail(f"[clip] K4 at {shape} differs from its plain version: {(got != want).sum().item()} values")
+        err = max(err, max_abs_err((got, want)))
+        shapes.append(shape)
+        site = "templates" if len(chans) == 3 else ("patch" if win != cfg.win_size else "polish")
+        sites.add((site, tuple(chans[0].shape)))
+    levels = sorted({hw for _, hw in sites}, reverse=True)
+    want_sites = {(site, hw) for site in ("templates", "patch", "polish") for hw in levels}
+    if len(levels) != 2 or sites != want_sites:
+        fail(f"[clip] K4's recorded calls cover {sorted(sites)}, not the three sites at two levels")
+    print(f"[clip] K4 bit-equal to its plain version at the path's own {len(calls)} calls of one pair "
+          f"([C, H, W, N, win]: {shapes})", flush=True)
+    return dict(shapes=shapes, max_abs_err=err)
+
+
+def phase_clip(dev: str = "cuda") -> dict:
+    """[clip] bench.py config 2 (config2_pyrlk_clip100) as bench.py runs it,
+    on the first 100 frames of benchmarks/data/megamind_gray.avi at the
+    clip's own 528x720 in f32, decoded on the host by the port's reader
+    without PIL and held to the JAX reader's digest: GFTT (512, 0.01, 7),
+    LKConfig(win_size=21, n_levels=4), re-detection below 500 tracked;
+    cold on COLD_FRAMES frames, then warm WARM_RUNS times; K4 must be
+    launched; 4 pairs on the card against the CPU (0.05 px, >= 99 % equal
+    status), from frame 1 (frame 0 is black, so GFTT finds no corner
+    there and the path re-detects on frame 1); K4 bit-equal to its plain
+    version at the path's own calls (k4_clip_check). Unit: a frame."""
+    import torch
+
+    from opencv_tpu_torch.core.config import LKConfig
+
+    frames, decode_s = clip_frames()
+    n = frames.shape[0]
+    print(f"[clip] decoded {n} frames {frames.shape[1]}x{frames.shape[2]} of megamind_gray.avi on "
+          f"the host with PIL blocked in {decode_s:.2f} s ({1e3 * decode_s / n:.1f} ms a frame); "
+          f"SHA-256 equals the JAX reader's", flush=True)
+    cfg = LKConfig(win_size=21, n_levels=4)
+    clip = torch.from_numpy(frames.astype(np.float32)).to(dev)
+    t0 = time.perf_counter()
+    lk_config2_run(clip[:COLD_FRAMES], cfg, dev)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    outs, warm_s, runs = warm_runs_of(lambda: lk_config2_run(clip, cfg, dev), WARM_RUNS)
+    if any(c["lk_sample"] <= 0 for c in runs):
+        fail("kernel lk_sample was not launched on the [clip] path")
+    (tracked, redetect), counts = outs[0], runs[0]
+    warm = statistics.median(warm_s)
+    per_pair = counts["lk_sample"] / (n - 1)
+    worst, agree, n_both = lk_card_vs_cpu(clip[1:], cfg, dev)  # frame 0 is black: no corner
+    print(f"[clip] pairs 1-5, card vs CPU: {n_both} points tracked in both, largest difference "
+          f"{worst:.3g} px, status agreement {min(agree):.4f} (worst pair)", flush=True)
+    if not worst <= 0.05:
+        fail(f"[clip] LK on the card differs from the CPU run by {worst} px (> 0.05)")
+    if not min(agree) >= 0.99:
+        fail(f"[clip] LK status agrees with the CPU run on only {min(agree):.4f} of the points")
+    k4 = k4_clip_check(clip, cfg, dev)
+    res = dict(frames=n, units=n, unit="frame", decode_s=decode_s, fps_warm=n / warm,
+               fps_warm_runs=[n / t for t in warm_s], warm_s=warm, cold_s=cold,
+               cold_frames=COLD_FRAMES, opencv_baseline_fps=CLIP_BASELINE_FPS,
+               tracked_mean=float(np.mean(tracked)), tracked_min=int(np.min(tracked)),
+               redetections=redetect, k4_launches_per_pair=per_pair, cpu_check_max_px=worst,
+               cpu_check_status_agreement=min(agree), k4_check=k4, launches=counts)
+    print(f"[clip] bench config 2 on the committed clip, {n} frames 528x720: warm {warm:.3f} s "
+          f"({n / warm:.2f} frames/s, median of {WARM_RUNS} runs, range {n / max(warm_s):.2f} to "
+          f"{n / min(warm_s):.2f}; the OpenCV baseline's {CLIP_BASELINE_FPS} frames/s on a 2-CPU "
+          f"host is a point of comparison), cold {cold:.3f} s on {COLD_FRAMES} frames; tracked per "
+          f"pair mean {res['tracked_mean']:.1f}, min {res['tracked_min']}; {redetect} "
+          f"re-detections; K4 launches per pair {per_pair:.2f}; launches {counts}", flush=True)
+    return res
+
+
+# letter_recog's shapes (samples/cpp/letter_recog.cpp on UCI Letter
+# Recognition: 20 000 x 16, 26 classes, the first 80 % for training) on
+# seeded data, and BOWKMeansTrainer's use of k-means in features2d
+ML_ROWS, ML_TRAIN, ML_FEATURES, ML_CLASSES = 20_000, 16_000, 16, 26
+ML_SIGMA = 4.0  # class spread: overlapping clusters, kNN accuracy near letter_recog's
+ML_KNN_K = 10
+ML_MLP_HIDDEN, ML_MLP_ITERS = (100, 100), 300
+ML_FOREST = dict(n_trees=100, depth=10, feature_frac=0.25)  # 4 of 16 active variables
+ML_ADA = dict(n_rounds=100, depth=5)
+ML_KSVM_ROWS = 4000  # the RBF Gram matrix is n^2
+ML_BOW = dict(rows=100_000, dim=32, k=256)
+ML_GMM_K = 26
+ML_SUBSET = 2000  # rows of the card-vs-CPU comparison
+ML_SUBSET_TREES, ML_SUBSET_SGD_ITERS, ML_SUBSET_MLP_ITERS = 10, 10_000, 10
+ML_ACC_TOL = 0.01  # the card's accuracy against the JAX package's own figure
+ML_PARAM_RTOL = 1e-4  # card against CPU, of each parameter's scale
+ML_FIGURE_RTOL = 1e-5  # inertia and log-likelihood from JAX's picks against the JAX package's
+# The JAX package's own figures on the same seeded data, at the same
+# settings with its own draws, on a CPU (tools/jax_slice11_figures.py)
+JAX_FIGURES_SLICE11 = {"knn": 0.935, "naive_bayes": 0.94725, "mlp": 0.90075, "random_forest": 0.9105,
+                       "linear_svm": 0.98975, "logistic": 0.99, "kernel_svm_rbf": 0.992,
+                       "svmsgd": 0.99025, "adaboost": 0.9945, "gbt": 0.9935,
+                       "kmeans_bow": 2200924928.0, "gmm_letters": -316965.375}
+
+# The JAX package's k-means++ picks (row indices) of the two clusterings,
+# printed by the same tool: from them the port's inertia and log-likelihood
+# are held to JAX_FIGURES_SLICE11's within ML_FIGURE_RTOL
+JAX_PICKS_SLICE11 = {
+    "kmeans_bow": [
+        23887, 90933, 28842, 54618, 51393, 98933, 46597, 78346, 37854, 2653, 9433, 1953, 46675,
+        3368, 94034, 50393, 67870, 2168, 76794, 87521, 9781, 14242, 85119, 53953, 98162, 31899,
+        2849, 27850, 10815, 82834, 7812, 11193, 83199, 64122, 54475, 74117, 75181, 96093, 56959,
+        64829, 4725, 65710, 97220, 81716, 96706, 20249, 97660, 54726, 14295, 6466, 28839, 62524,
+        75994, 78797, 47738, 30782, 70770, 68470, 32468, 69029, 2818, 97280, 21167, 24303,
+        21135, 81419, 65159, 44068, 60982, 40809, 14497, 78961, 92465, 23575, 81921, 63351,
+        84420, 14134, 4735, 50222, 10114, 6945, 33508, 76188, 83938, 27681, 23040, 44161, 47862,
+        92863, 37439, 57848, 9287, 33945, 56512, 86770, 24779, 40138, 93387, 14963, 23547,
+        58138, 82295, 51517, 36043, 31276, 12728, 46301, 67547, 17532, 87958, 98173, 82652,
+        34637, 24, 60330, 2427, 62345, 89429, 52172, 65023, 62953, 4411, 30165, 16663, 87516,
+        76711, 48564, 77011, 18014, 87416, 90670, 21325, 67752, 8557, 37096, 69241, 52349,
+        28718, 77472, 38020, 83759, 40470, 48030, 73292, 24839, 13756, 31226, 59024, 38068,
+        9662, 52493, 25882, 61855, 31428, 31766, 18822, 65652, 36640, 39272, 36707, 3323, 17254,
+        81441, 98172, 98416, 24116, 26168, 49755, 31321, 37441, 42316, 79843, 58802, 97512,
+        69485, 33364, 14465, 21441, 77449, 98857, 97232, 35079, 24947, 42852, 46862, 99409,
+        82835, 5342, 15833, 91216, 89491, 35916, 82866, 22792, 51450, 89402, 42012, 39340,
+        56465, 85424, 94100, 99363, 31143, 44020, 62225, 36694, 8823, 48189, 80110, 15484,
+        62943, 59782, 12350, 77776, 44306, 82725, 91763, 29520, 50035, 41486, 84761, 77574,
+        9931, 94205, 95013, 97357, 28531, 47490, 83077, 75990, 75492, 65839, 15060, 34207,
+        55023, 76813, 78158, 12205, 26273, 32739, 70780, 56846, 15401, 32974, 35421, 93152,
+        57960, 94677, 19435, 33214, 23119, 10774, 82768, 36942, 53519],
+    "gmm_letters": [
+        4687, 12557, 9075, 12975, 13413, 8542, 1055, 4064, 8224, 1248, 15388, 6123, 2976, 13479,
+        7686, 3281, 1509, 1184, 14808, 6574, 2219, 14070, 10471, 13532, 1067, 1949],
+}
+
+
+def letter_data(seed: int = 11) -> tuple[np.ndarray, np.ndarray]:
+    """[ML_ROWS, 16] f32 features and [ML_ROWS] labels: 26 Gaussian class
+    clusters (centres uniform in 0-15, letter_recog's feature range,
+    spread ML_SIGMA) that overlap, standardised by the training rows'
+    mean and deviation (ANN_MLP scales its inputs likewise)."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(0, 15, (ML_CLASSES, ML_FEATURES))
+    y = rng.integers(0, ML_CLASSES, ML_ROWS)
+    x = centres[y] + rng.normal(0, ML_SIGMA, (ML_ROWS, ML_FEATURES))
+    mu, sd = x[:ML_TRAIN].mean(0), x[:ML_TRAIN].std(0)
+    return ((x - mu) / sd).astype(np.float32), y.astype(np.int64)
+
+
+def bow_data(seed: int = 12) -> np.ndarray:
+    """[100 000, 32] f32 descriptor-like rows: 256 visual words (centres
+    uniform 0-255) with N(0, 20) spread."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(0, 255, (ML_BOW["k"], ML_BOW["dim"]))
+    words = rng.integers(0, ML_BOW["k"], ML_BOW["rows"])
+    return (centres[words] + rng.normal(0, 20, (ML_BOW["rows"], ML_BOW["dim"]))).astype(np.float32)
+
+
+def ml_draws(x_train: np.ndarray, n_forest_trees: int, sgd_iters: int, seed: int = 0) -> dict:
+    """Every model's random draws from seeded CPU generators, so that the
+    card and the CPU fit from the same values."""
+    import torch
+
+    from opencv_tpu_torch.ml import classifiers, trees
+
+    g = torch.Generator().manual_seed(seed)
+    n, f = x_train.shape
+    sizes = (f,) + ML_MLP_HIDDEN + (ML_CLASSES,)
+    return dict(mlp=classifiers.mlp_init_draws(g, sizes),
+                forest=trees.forest_draws(g, n, f, n_forest_trees, ML_FOREST["feature_frac"]),
+                sgd=classifiers.svmsgd_indices(g, n, sgd_iters))
+
+
+def _sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ml_fit_all(xtr, ytr, xte, yte, dev, draws: dict, n_trees: int, sgd_iters: int,
+               mlp_iters: int, ksvm_rows: int, counter=None) -> dict:
+    """Fit and predict every classifier at letter_recog's settings on
+    (xtr, ytr), test on (xte, yte), on `dev` from `draws`. Returns {name:
+    dict(fit_s, predict_s, accuracy, model, pred, ops)}: the multi-class
+    models on the 26 letters, the binary ones on letter 0 against the
+    rest. `counter` (a dispatch counter or None) counts each fit's and
+    prediction's device operations."""
+    import torch
+
+    from opencv_tpu_torch.ml import classifiers as C
+    from opencv_tpu_torch.ml import trees as T
+
+    xtr, xte = torch_tensor(xtr, dev), torch_tensor(xte, dev)
+    ytr, yte = torch_tensor(ytr, dev), torch_tensor(yte, dev)
+    btr, bte = (ytr == 0).long(), (yte == 0).long()
+    sgn_tr, sgn_te = 2 * btr - 1, 2 * bte - 1
+    kx, kb = xtr[:ksvm_rows], btr[:ksvm_rows]
+    fits = {
+        "knn": (lambda: None, lambda m: C.knn_classify(xtr, ytr, xte, k=ML_KNN_K, n_classes=ML_CLASSES), yte),
+        "naive_bayes": (lambda: C.train_naive_bayes(xtr, ytr, ML_CLASSES),
+                        lambda m: C.naive_bayes_predict_log_proba(m, xte).argmax(1), yte),
+        "mlp": (lambda: C.train_mlp(None, xtr, ytr, hidden=ML_MLP_HIDDEN, n_classes=ML_CLASSES,
+                                    iters=mlp_iters, init=draws["mlp"]),
+                lambda m: C.mlp_predict_proba(m, xte).argmax(1), yte),
+        "random_forest": (lambda: T.fit_random_forest(
+            None, xtr, ytr, n_trees=n_trees, depth=ML_FOREST["depth"], n_classes=ML_CLASSES,
+            feature_frac=ML_FOREST["feature_frac"],
+            draws=(draws["forest"][0][:n_trees], draws["forest"][1][:n_trees])),
+            lambda m: T.forest_predict_proba(m, xte).argmax(1), yte),
+        "linear_svm": (lambda: C.train_linear_svm(xtr, sgn_tr.float()),
+                       lambda m: torch.where(C.svm_predict(m, xte) > 0, 1, -1), sgn_te),
+        "logistic": (lambda: C.train_logistic_regression(xtr, btr),
+                     lambda m: (C.logistic_predict_proba(m, xte) > 0.5).long(), bte),
+        "kernel_svm_rbf": (lambda: C.train_kernel_svm(kx, kb, kind="rbf"),
+                           lambda m: (C.kernel_svm_decision(m, xte) > 0).long(), bte),
+        "svmsgd": (lambda: C.train_svmsgd(xtr, sgn_tr, iters=sgd_iters, indices=draws["sgd"][:sgd_iters]),
+                   lambda m: C.svmsgd_predict(m, xte).long(), sgn_te),
+        "adaboost": (lambda: T.fit_adaboost(xtr, btr, **ML_ADA),
+                     lambda m: (T.adaboost_decision(m, xte) > 0).long(), bte),
+        "gbt": (lambda: T.fit_gbt(xtr, btr), lambda m: (T.gbt_decision(m, xte) > 0).long(), bte),
+    }
+    out = {}
+    for name, (fit, predict, truth) in fits.items():
+        ops0 = counter.n if counter else 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        model = fit()
+        _sync(dev)
+        t1 = time.perf_counter()
+        pred = predict(model)
+        _sync(dev)
+        t2 = time.perf_counter()
+        acc = float((pred == truth).float().mean())
+        out[name] = dict(fit_s=t1 - t0, predict_s=t2 - t1, accuracy=acc, model=model, pred=pred,
+                         ops=(counter.n - ops0) if counter else None)
+    return out
+
+
+def ml_picks(name: str, x, dev="cpu"):
+    """k-means++ picks of the clustering run `name` from its seeded CPU
+    generator."""
+    import torch
+
+    from opencv_tpu_torch.ml import clustering as CL
+
+    seed, k = {"kmeans_bow": (1, ML_BOW["k"]), "gmm_letters": (2, ML_GMM_K)}[name]
+    return CL.kmeans_pp_picks(torch.Generator().manual_seed(seed), torch_tensor(x, dev), k)
+
+
+def ml_cluster_all(xb, xl, dev, picks: dict | None = None, counter=None) -> dict:
+    """k-means (k = 256, 30 Lloyd iterations) of the descriptor rows and
+    GMM EM (k = 26, 50 iterations) of the letter features, from k-means++
+    `picks` (drawn here, from seeded CPU generators, when not given; the
+    draw is part of the fit's time). Each result's `pred` is the row's
+    cluster: the k-means label, the GMM's most likely component."""
+    from opencv_tpu_torch.ml import clustering as CL
+
+    out = {}
+    for name in ("kmeans_bow", "gmm_letters"):
+        x = torch_tensor(xb if name == "kmeans_bow" else xl, dev)
+        ops0 = counter.n if counter else 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        pk = ml_picks(name, x, dev) if picks is None else picks[name]
+        if name == "kmeans_bow":
+            res = CL.kmeans(None, x, ML_BOW["k"], picks=pk)
+            pred, figure = res.labels, res.inertia
+        else:
+            res = CL.gmm_em(None, x, ML_GMM_K, picks=pk)
+            pred = CL._log_prob(x, res.means, res.variances, res.weights).argmax(1)
+            figure = res.log_likelihood
+        _sync(dev)
+        out[name] = dict(fit_s=time.perf_counter() - t0, figure=float(figure), model=res, pred=pred,
+                         ops=(counter.n - ops0) if counter else None)
+    return out
+
+
+def _op_counter():
+    """A dispatch mode that counts the ATen operations run inside it (on
+    the card, about one kernel launch each)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCounter(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return OpCounter()
+
+
+def _params_close(a, b, rtol: float = ML_PARAM_RTOL) -> float:
+    """Largest |a - b| over the tensor leaves of two models, relative to
+    each leaf's largest magnitude (at least 1); inf on a structure
+    mismatch."""
+    import torch
+
+    def leaves(m):
+        if isinstance(m, torch.Tensor):
+            return [m]
+        if isinstance(m, (tuple, list)):
+            return [t for v in m for t in leaves(v)]
+        return []
+
+    la, lb = leaves(a), leaves(b)
+    if len(la) != len(lb):
+        return float("inf")
+    worst = 0.0
+    for x, y in zip(la, lb):
+        x, y = x.detach().cpu().double(), y.detach().cpu().double()
+        if x.shape != y.shape:
+            return float("inf")
+        if x.numel():
+            worst = max(worst, float((x - y).abs().max()) / max(float(y.abs().max()), 1.0))
+    return worst
+
+
+def phase_ml(card: str, dev: str = "cuda") -> dict:
+    """[ml] OpenCV's ml sample (samples/cpp/letter_recog.cpp) at its size on
+    seeded data of its shape (20 000 x 16, 26 overlapping classes; 16 000
+    to train, 4 000 to test), every model with the sample's settings where
+    the function takes them: kNN k = 10, naive Bayes, an MLP 16-100-100-26
+    with 300 RPROP iterations, a random forest of 100 trees at depth 10
+    with feature_frac 0.25; on letter 0 against the rest the linear SVM,
+    logistic regression, the RBF kernel SVM on 4 000 rows, SVMSGD (100 000
+    steps), AdaBoost (100 trees at depth 5) and GBT. k-means (k = 256) of
+    100 000 x 32 descriptor rows (BOWKMeansTrainer's use) and GMM EM (k =
+    26) of the letter features. Each model's test accuracy (inertia or
+    log-likelihood), fit and predict seconds; accuracies within
+    ML_ACC_TOL of the JAX package's own figures; the two clusterings fitted
+    again from the JAX package's own k-means++ picks (JAX_PICKS_SLICE11),
+    their inertia and log-likelihood within ML_FIGURE_RTOL of its figures
+    (from the port's own draws they are printed, not held: other seeds,
+    another optimum). Then the card against
+    the CPU on a 2 000-row subset from the same draws (10 trees, 10 000
+    SVMSGD steps, 10 MLP iterations: RPROP steps by the sign of each
+    gradient, so a last-bit difference in a gradient near zero flips a
+    step and parts the two devices' weights after 20-30 iterations, as it
+    parts the JAX package's): equal predictions, trees equal, parameters within
+    ML_PARAM_RTOL of their scale; the device operations each fit runs
+    are counted there. Unit: a model."""
+    import torch
+
+    from opencv_tpu_torch.ops import cuda as cuda_ops
+
+    x, y = letter_data()
+    xb = bow_data()
+    xtr, ytr, xte, yte = x[:ML_TRAIN], y[:ML_TRAIN], x[ML_TRAIN:], y[ML_TRAIN:]
+    draws = ml_draws(xtr, ML_FOREST["n_trees"], 100_000)
+    cuda_ops.reset_launch_counts()
+    fits = ml_fit_all(xtr, ytr, xte, yte, dev, draws, ML_FOREST["n_trees"], 100_000, ML_MLP_ITERS,
+                      ML_KSVM_ROWS)
+    clus = ml_cluster_all(xb, xtr, dev)
+    _sync(dev)
+    counts = dict(cuda_ops.launch_counts)
+    from_jax = ml_cluster_all(xb, xtr, dev, JAX_PICKS_SLICE11)
+
+    # card against CPU on the subset, the same draws; the card's device operations counted
+    sub = ML_SUBSET
+    sx, sy, qx, qy = xtr[:sub], ytr[:sub], xte[:sub // 2], yte[:sub // 2]
+    sdraws = ml_draws(sx, ML_SUBSET_TREES, ML_SUBSET_SGD_ITERS, seed=1)
+    spicks = {"kmeans_bow": ml_picks("kmeans_bow", xb[:sub]), "gmm_letters": ml_picks("gmm_letters", sx)}
+    counter = _op_counter()
+    with counter:
+        on_card = ml_fit_all(sx, sy, qx, qy, dev, sdraws, ML_SUBSET_TREES, ML_SUBSET_SGD_ITERS,
+                             ML_SUBSET_MLP_ITERS, sub, counter)
+        on_card |= ml_cluster_all(xb[:sub], sx, dev, spicks, counter)
+    on_cpu = ml_fit_all(sx, sy, qx, qy, "cpu", sdraws, ML_SUBSET_TREES, ML_SUBSET_SGD_ITERS,
+                        ML_SUBSET_MLP_ITERS, sub)
+    on_cpu |= ml_cluster_all(xb[:sub], sx, "cpu", spicks)
+    res = dict(units=len(fits) + len(clus), unit="model", card=card, launches=counts, models={})
+    bad = []
+    for name, r in list(fits.items()) + list(clus.items()):
+        gc, cc = on_card[name], on_cpu[name]
+        same = bool(torch.equal(gc["pred"].cpu(), cc["pred"]))
+        perr = _params_close(gc["model"], cc["model"])
+        jax_fig = JAX_FIGURES_SLICE11.get(name)
+        metric = r.get("accuracy", r.get("figure"))
+        res["models"][name] = dict(fit_s=r["fit_s"], predict_s=r.get("predict_s"), metric=metric,
+                                   jax_figure=jax_fig, card_vs_cpu_equal=same,
+                                   card_vs_cpu_param_rel=perr, subset_ops=gc["ops"])
+        what = "accuracy" if "accuracy" in r else ("inertia" if name == "kmeans_bow" else "log-likelihood")
+        jax_txt = f" (the JAX package's {jax_fig:.4f})" if jax_fig is not None else ""
+        pred_txt = f", predict {r['predict_s']:.3f} s" if "predict_s" in r else ""
+        if name in from_jax:
+            fig = from_jax[name]["figure"]
+            rel = abs(fig - jax_fig) / abs(jax_fig)
+            res["models"][name].update(from_jax_picks=fig, from_jax_picks_rel=rel)
+            jax_txt += f"; from the JAX package's picks {fig:.4f}, off by {rel:.3g} of it"
+            if not rel <= ML_FIGURE_RTOL:
+                bad.append(f"{name} {what} {fig} from the JAX package's picks against its {jax_fig}")
+        print(f"[ml] {name}: {what} {metric:.4f}{jax_txt}; fit {r['fit_s']:.3f} s{pred_txt} on {dev} "
+              f"| {card}; card vs CPU on {sub} rows: {'equal' if same else 'DIFFERENT'} labels, "
+              f"parameters within {perr:.3g} of their scale; {gc['ops']} device ops in that fit",
+              flush=True)
+        if not same or not perr <= ML_PARAM_RTOL:
+            bad.append(f"{name} card vs CPU (labels equal {same}, parameters {perr})")
+        if "accuracy" in r and jax_fig is not None and not abs(metric - jax_fig) <= ML_ACC_TOL:
+            bad.append(f"{name} accuracy {metric} against the JAX package's {jax_fig}")
+    print(f"[ml] {len(res['models'])} models; port kernels launched in the full fits {counts}", flush=True)
+    if bad:
+        fail("[ml] " + "; ".join(bad))
+    return res
+
+
+@contextlib.contextmanager
+def torch_default_tf32(unguard_dnn: bool = False):
+    """torch's default switches inside the block (cuDNN TF32 on, matmul
+    TF32 off); with `unguard_dnn`, dnn's convolution and fully connected
+    layers lose their own no_tf32 (their undecorated `__wrapped__`), as
+    the port had them before its TF32 repair: YOLOv2-tiny's products are
+    all convolutions."""
+    import torch
+
+    from opencv_tpu_torch.dnn import layers
+
+    saved = layers.convolution, layers.fully_connected
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    if unguard_dnn:
+        layers.convolution, layers.fully_connected = (f.__wrapped__ for f in saved)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        yield
+    finally:
+        layers.convolution, layers.fully_connected = saved
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def dnn_tf32_figures(net, x8, last: str, cpu_last, dev, res: dict) -> dict:
+    """[dnn] TF32: YOLOv2-tiny-VOC at torch's default switches. (a) The
+    port before its repair (dnn's layers unguarded): `last`'s error
+    against the CPU and the forward's device time at batch 1 and 8,
+    beside the f32 forward's; recorded, not gated. (b) The repaired
+    Net.forward at the same switches: within DNN_RTOL of the CPU, or
+    fail."""
+    with torch_default_tf32(unguard_dnn=True):
+        net.set_input(torch_tensor(x8[:1], dev))
+        _, err = _allclose_scaled(net.forward(last).cpu().numpy(), cpu_last)
+        ms = {}
+        for b in (1, 8):
+            xb = torch_tensor(x8[:b], dev)
+            ms[b] = device_time_ms(lambda: (net.set_input(xb), net.forward()), calls=3, trials=10)
+    with torch_default_tf32():
+        net.set_input(torch_tensor(x8[:1], dev))
+        ok, err_fixed = _allclose_scaled(net.forward(last).cpu().numpy(), cpu_last)
+    f32 = {b: res[f"batch{b}"]["forward_ms"] for b in (1, 8)}
+    print(f"[dnn] TF32 at torch's default switches (cuDNN on, matmul off), dnn as before its repair: "
+          f"{last} differs from the CPU by {err:.3g} of its scale (the f32 bound is {DNN_RTOL}); "
+          f"forward {ms[1]:.3f} ms at batch 1 and {ms[8]:.3f} ms at batch 8 against {f32[1]:.3f} and "
+          f"{f32[8]:.3f} ms in f32 (x{f32[1] / ms[1]:.2f} and x{f32[8] / ms[8]:.2f}); the repaired "
+          f"Net.forward at the same switches: {err_fixed:.3g}", flush=True)
+    if not ok:
+        fail(f"[dnn] Net.forward at torch's default TF32 switches differs from the CPU by {err_fixed}")
+    return dict(err_before_repair=err, forward_ms_b1=ms[1], forward_ms_b8=ms[8], err_repaired=err_fixed)
 
 
 def phase_profile_slice10() -> None:
@@ -4489,7 +5050,9 @@ def main():
              "photo": timed("photo", phase_photo, frames[0], card),
              "imgops": timed("imgops", phase_imgops, frames[0], card),
              "cascade": timed("cascade", phase_cascade, card),
-             "dnn": timed("dnn", phase_dnn, card)}
+             "dnn": timed("dnn", phase_dnn, card),
+             "clip": timed("clip", phase_clip),
+             "ml": timed("ml", phase_ml, card)}
     if args.measure:
         timed("profile orb", phase_profile, frames, K, "orb", 24, 2)
         timed("profile klt", phase_profile, frames, K, "klt", 24, 2)
@@ -4501,6 +5064,9 @@ def main():
         timed("profile bgfg and nl_means", phase_profile_slice9, frames[0])
         timed("profile haar and yolo", phase_profile_slice10)
     print(f"[time] total: {time.perf_counter() - t_start:.1f} s of phases", flush=True)
+    k4 = paths["clip"].pop("k4_check")
+    rows["lk_sample"]["shapes"] += k4["shapes"]
+    rows["lk_sample"]["max_abs_err"] = max(rows["lk_sample"]["max_abs_err"], k4["max_abs_err"])
     kernels = []
     for key, row in rows.items():
         by_path = {p: res["launches"][key] for p, res in paths.items()}

@@ -130,3 +130,28 @@ def lbp_cascade_model(m) -> LBPCascadeModel:
         stage_offsets=np.array(m.stage_offsets, np.int32),
         stage_thresholds=np.array(m.stage_thresholds, np.float32),
     )
+
+
+def ml_model(m, device=None):
+    """A JAX ml model or result NamedTuple (`LinearModel`, `MLPModel`,
+    `KernelSVM`, `GaussianNB`, `SVMSGDModel`, `Tree`, `Forest`,
+    `Boosted`, `GBT`, `KMeansResult`, `GMMResult`) as the port's class of
+    the same name: every array field as a tensor on `device` (the card
+    unless the caller asks for the CPU), tuples of arrays as tuples of
+    tensors, nested trees converted, and Python fields as they are."""
+    from opencv_tpu_torch.ml import classifiers, clustering, trees
+
+    dev = resolve_device(device)
+    name = type(m).__name__
+    cls = next(getattr(mod, name) for mod in (classifiers, clustering, trees) if hasattr(mod, name))
+
+    def field(v):
+        if isinstance(v, (str, int, float, bool)):
+            return v
+        if isinstance(v, tuple) and not hasattr(v, "_fields"):
+            return tuple(field(a) for a in v)
+        if hasattr(v, "_fields"):
+            return ml_model(v, dev)
+        return torch.as_tensor(np.array(v), device=dev)
+
+    return cls(*(field(getattr(m, f)) for f in cls._fields))

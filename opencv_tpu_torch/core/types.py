@@ -11,6 +11,8 @@ import dataclasses
 
 import torch
 
+from opencv_tpu_torch.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class KeyPoints:
@@ -105,3 +107,29 @@ def masked_top_k(
     masked = torch.where(valid, values, torch.full_like(values, -float("inf")))
     top_vals, top_idx = torch.sort(masked, descending=True, stable=True)
     return top_idx[:k], torch.isfinite(top_vals[:k])
+
+
+def camera_matrix(fx: float, fy: float, cx: float, cy: float, device=None) -> torch.Tensor:
+    """3x3 intrinsic matrix K (f32), on `device` (the card unless the
+    caller asks for the CPU)."""
+    return torch.tensor([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]], dtype=torch.float32,
+                        device=resolve_device(device))
+
+
+def take_keypoints(kp: KeyPoints, idx: torch.Tensor, valid: torch.Tensor | None = None) -> KeyPoints:
+    """Gather keypoints by index, intersecting validity."""
+    v = kp.valid[idx]
+    if valid is not None:
+        v = v & valid
+    return KeyPoints(xy=kp.xy[idx], response=kp.response[idx], angle=kp.angle[idx],
+                     level=kp.level[idx], size=kp.size[idx], valid=v)
+
+
+def pad_to(x: torch.Tensor, n: int, axis: int = 0, fill=0) -> torch.Tensor:
+    """Pad `axis` to length n with `fill`, or cut it to n."""
+    cur = x.shape[axis]
+    if cur >= n:
+        return x.narrow(axis, 0, n)
+    shape = list(x.shape)
+    shape[axis] = n - cur
+    return torch.cat([x, torch.full(shape, fill, dtype=x.dtype, device=x.device)], dim=axis)

@@ -4,10 +4,11 @@ of modules/dnn/src/layers/*). Data layout NCHW like the reference.
 Each layer is the PyTorch operation of the JAX function's XLA operation:
 convolutions are `F.conv2d` with XLA's padding rules written out
 (explicit pairs, or "SAME"/"VALID" strings at any stride), pooling is
-VALID like `lax.reduce_window`'s here, matrix products are `@`. Callers
-that compare with the JAX package or across devices run them inside
-`device.no_tf32()`: the card's default would round convolution and
-matmul inputs to TF32.
+VALID like `lax.reduce_window`'s here, matrix products are `@`. The
+layers that multiply (convolution, fully connected, LSTM, GRU) run inside
+`device.no_tf32()` whatever the caller's switches: torch's default
+`cudnn.allow_tf32` would round the card's convolution inputs to TF32,
+and the JAX reference computes in f32.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from opencv_tpu_torch.device import resolve_device
+from opencv_tpu_torch.device import no_tf32, resolve_device
 
 
 def same_pads(size: int, k: int, stride: int, dilation: int = 1) -> tuple[int, int]:
@@ -51,6 +52,7 @@ def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(int(s) for s in v)
 
 
+@no_tf32()
 def convolution(x, weights, bias=None, stride=1, pad="SAME", groups=1):
     """x [N, C, H, W], weights [O, C/groups, kh, kw]; pad "SAME", "VALID"
     or [(top, bottom), (left, right)] (XLA's conventions)."""
@@ -62,6 +64,7 @@ def convolution(x, weights, bias=None, stride=1, pad="SAME", groups=1):
     return out
 
 
+@no_tf32()
 def fully_connected(x, weights, bias=None):
     """x [N, D] (flattened on entry), weights [O, D]."""
     out = x.reshape(x.shape[0], -1) @ weights.T
@@ -247,6 +250,7 @@ def detection_output(loc: torch.Tensor, conf: torch.Tensor, priors: torch.Tensor
     return torch.cat(rows, dim=0)
 
 
+@no_tf32()
 def lstm(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, bias=None, h0=None, c0=None):
     """LSTM over a sequence (recurrent_layers.cpp LSTMLayer). x [T, N, D];
     w_ih [4H, D], w_hh [4H, H], bias [4H], gate order (i, f, o, g) (the
@@ -268,6 +272,7 @@ def lstm(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, bias=None, h0=
     return torch.stack(ys), (h, c)
 
 
+@no_tf32()
 def gru(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, bias_ih=None, bias_hh=None,
         h0=None, linear_before_reset: bool = True):
     """GRU over a sequence (ONNX GRU semantics). x [T, N, D]; w_ih [3H, D],

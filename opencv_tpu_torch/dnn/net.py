@@ -45,7 +45,9 @@ class Net(nn.Module):
             self._input_names.append(name)
 
     def forward(self, output_name: str | None = None) -> torch.Tensor:
-        """Run the graph up to `output_name` (the last layer by default)."""
+        """Run the graph up to `output_name` (the last layer by default).
+        Every layer that multiplies runs in exact f32 whatever the TF32
+        switches, under its own `no_tf32` (dnn/layers.py)."""
         target = output_name or self._layers[-1][0]
         values = dict(self._inputs)
         with torch.no_grad():

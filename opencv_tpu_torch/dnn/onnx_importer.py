@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from opencv_tpu_torch.device import no_tf32
 from opencv_tpu_torch.dnn import layers, proto
 from opencv_tpu_torch.dnn.net import Net
 
@@ -172,8 +173,8 @@ def _op(op, ins, at, consts, w, c_list, dev):
     if op == "MatMul":
         if ins[1] in consts:
             weight = w(1)
-            return (lambda x: x @ weight), x0
-        return (lambda a, b: a @ b), ins[:2]
+            return (lambda x: _matmul(x, weight)), x0
+        return _matmul, ins[:2]
     if op == "Relu":
         return layers.relu, x0
     if op == "LeakyRelu":
@@ -531,6 +532,12 @@ def _lrn(x, size, alpha, beta, bias):
     return x / (bias + (alpha / size) * den) ** beta
 
 
+@no_tf32()
+def _matmul(a, b):
+    return a @ b
+
+
+@no_tf32()
 def _conv_transpose(x, weight, bias, stride, pads, out_pad, groups):
     """ONNX/torch ConvTranspose2d as a forward convolution of the
     input dilated by the stride: weight [Cin, Cout/g, kH, kW] ->
@@ -577,6 +584,7 @@ _ROUND = {
 }
 
 
+@no_tf32()
 def _resize(x, scales, sizes, mode, coord, nearest_mode="round_prefer_floor"):
     """ONNX Resize on NCHW with the per-mode conventions (separable)."""
     h, w = x.shape[2], x.shape[3]

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from opencv_tpu_torch.device import no_tf32
 from opencv_tpu_torch.dnn import layers, proto
 from opencv_tpu_torch.dnn.net import Net
 
@@ -163,6 +164,7 @@ def load_tf(path_or_bytes, device=None) -> Net:
             if at.get("transpose_b", False):
                 wmat = wmat.T
 
+            @no_tf32()
             def fn(x, wmat=wmat):
                 return x @ wmat
         elif op in ("Add", "AddV2", "Sub", "Mul", "RealDiv"):

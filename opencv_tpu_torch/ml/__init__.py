@@ -1,4 +1,4 @@
-"""Machine learning (port of opencv_tpu/ml/): the cascade trainer so far;
-the classifiers, clustering and trees are not ported yet."""
+"""Machine learning (port of opencv_tpu/ml/): the classifiers, clustering,
+trees and boosting, and the cascade trainer."""
 
-from opencv_tpu_torch.ml import traincascade  # noqa: F401
+from opencv_tpu_torch.ml import classifiers, clustering, traincascade, trees  # noqa: F401

@@ -18,7 +18,11 @@ image-processing group (MOG2 and KNN steps, CLAHE, template matching,
 phase correlation, the distance transform, NLM and Telea inpainting at
 480x640) on the card against the CPU; the cascade trainer, the Haar and
 LBP detectors and the dnn importers (the tiny_cnn ONNX fixture, a Darknet
-region net) on the card against the CPU.
+region net) on the card against the CPU; dnn, HOG and template matching
+at torch's default TF32 switches, and each dnn product with both TF32
+switches on, against the CPU; and every ml model
+fitted on the card against the CPU, with SVMSGD's CUDA-graph replays
+against its eager steps.
 
 This file imports neither jax nor the JAX package, so that it runs on a
 machine that has only PyTorch:
@@ -1250,3 +1254,243 @@ def test_dnn_on_card_equals_cpu(card):
             dn.set_input(img)
             outs.append(dn.forward().cpu().numpy())
     np.testing.assert_allclose(outs[0][..., :5], outs[1][..., :5], rtol=1e-4, atol=1e-5)
+
+
+def _scaled_err(got, want) -> float:
+    """Largest |got - want| over want's largest magnitude, in f64 on the CPU."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+_WIDE_CFG = """
+[net]
+width=40
+height=40
+channels=64
+
+[convolutional]
+filters=64
+size=3
+stride=1
+pad=1
+activation=linear
+"""
+
+
+@pytest.mark.cuda
+def test_convolutions_hold_to_cpu_under_torch_default_tf32(card):
+    """Both switches at torch's defaults (cuDNN TF32 on, matmul TF32 off):
+    dnn's convolution layer and forward (a 64-channel Darknet layer, the
+    tiny_cnn ONNX fixture and a Darknet region net), HOG's score map and
+    match_template still equal the CPU within the bounds of the TF32-off
+    tests, because each module turns TF32 off itself (dnn: each
+    multiplying layer). The control shows that the switch does bite on
+    this card: a bare F.conv2d at these defaults misses the CPU by more
+    than 1e-4 of its scale, where dnn's convolution is held to 1e-5.
+    match_template is held on a scene with noise and on the same scene
+    without it, whose all-zero windows give NaN in the two normed
+    methods that take sqrt(window sum of squares) (the integral image's
+    difference there is a negative residue, as in the JAX package): the
+    NaNs must sit at the same places on both devices."""
+    import os
+    import struct
+
+    import torch.nn.functional as F
+
+    from opencv_tpu_torch.dnn import layers, load_darknet, load_onnx
+    from opencv_tpu_torch.ops import hog, template
+
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        rng = np.random.default_rng(5)
+        xc = torch.from_numpy(rng.uniform(0, 1, (2, 64, 40, 40)).astype(np.float32))
+        wc = torch.from_numpy(rng.normal(0, 0.1, (64, 64, 3, 3)).astype(np.float32))
+        assert _scaled_err(F.conv2d(xc.to(card), wc.to(card)), F.conv2d(xc, wc)) > 1e-4
+        assert _scaled_err(layers.convolution(xc.to(card), wc.to(card)), layers.convolution(xc, wc)) <= 1e-5
+        weights = struct.pack("<3i", 0, 2, 0) + struct.pack("<q", 0) + b"".join(
+            np.asarray(a, np.float32).tobytes() for a in (rng.normal(0, 0.1, 64), wc.numpy()))
+        outs = []
+        for dev in (card, "cpu"):
+            wide = load_darknet(_WIDE_CFG, weights, device=dev)
+            wide.set_input(xc.numpy())
+            outs.append(wide.forward())
+        assert _scaled_err(outs[0], outs[1]) <= 1e-5
+
+        fix = os.path.join(os.path.dirname(__file__), "fixtures")
+        net = load_onnx(os.path.join(fix, "tiny_cnn.onnx"), device=card)
+        net.set_input(np.load(os.path.join(fix, "tiny_cnn_input.npy")), "input")
+        got = net.forward("out").cpu().numpy()
+        assert np.abs(got - np.load(os.path.join(fix, "tiny_cnn_expected.npy"))).max() < 1e-5
+        arrs = []
+        for cout, cin, k, bn in ((16, 3, 3, True), (32, 16, 3, True), (27, 32, 1, False)):
+            arrs.append(rng.normal(0, 0.1, cout))
+            if bn:
+                arrs += [rng.uniform(0.8, 1.2, cout), rng.normal(0, 0.05, cout),
+                         rng.uniform(0.8, 1.2, cout)]
+            arrs.append(rng.normal(0, np.sqrt(2.0 / (cin * k * k)), (cout, cin, k, k)))
+        weights = struct.pack("<3i", 0, 2, 0) + struct.pack("<q", 0) + b"".join(
+            np.asarray(a, np.float32).tobytes() for a in arrs)
+        img = rng.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
+        outs = []
+        for dev in (card, "cpu"):
+            dn = load_darknet(_DNN_CFG, weights, device=dev)
+            dn.set_input(img)
+            outs.append(dn.forward().cpu().numpy())
+        np.testing.assert_allclose(outs[0][..., :5], outs[1][..., :5], rtol=1e-4, atol=1e-5)
+
+        bars = torch.from_numpy(_bar_image(np.random.default_rng(21)))
+        w = torch.from_numpy(np.random.default_rng(22).normal(0, 0.05, 3780).astype(np.float32))
+        sc = hog.score_map(bars, w, 0.1)
+        assert float((hog.score_map(bars.to(card), w.to(card), 0.1).cpu() - sc).abs().max()) <= 1e-3
+
+        rng = np.random.default_rng(61)
+        flat = _scene_480(rng)
+        noisy = flat + rng.uniform(0, 20, (480, 640)).astype(np.float32)
+        for scene in (noisy, flat):
+            tmpl = scene[200:264, 300:364]
+            for m in template.METHODS:
+                got = template.match_template(scene, tmpl, m, device=card).cpu()
+                want = template.match_template(scene, tmpl, m, device="cpu")
+                nan = torch.isnan(want)
+                assert torch.equal(torch.isnan(got), nan), m
+                got, want = got[~nan], want[~nan]
+                assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()) + 1e-4, m
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+def test_dnn_products_hold_to_cpu_with_both_tf32_switches_on(card):
+    """Both TF32 switches on, as a caller who wants TF32 everywhere sets
+    them: every product of dnn that runs under its own no_tf32 (the
+    convolution, fully connected, LSTM and GRU layers, the ONNX MatMul,
+    ConvTranspose and linear Resize) is within 1e-5 of its output's
+    scale of the CPU, while the same function without its decorator
+    (`__wrapped__`) misses by more than 1e-4 on these shapes (large
+    enough that cuBLAS and cuDNN take their TF32 kernels)."""
+    from opencv_tpu_torch.dnn import layers
+    from opencv_tpu_torch.dnn import onnx_importer as oi
+
+    rng = np.random.default_rng(8)
+
+    def t(*shape, s=1.0):
+        return torch.from_numpy(rng.normal(0, s, shape).astype(np.float32))
+
+    a, b = t(64, 1024), t(1024, 256)
+    cases = {
+        "convolution": (layers.convolution, (t(2, 64, 24, 24), t(64, 64, 3, 3, s=0.1))),
+        "fully_connected": (layers.fully_connected, (a, b.T.contiguous(), t(256))),
+        "lstm": (layers.lstm, (t(4, 64, 256), t(1024, 256, s=0.05), t(1024, 256, s=0.05))),
+        "gru": (layers.gru, (t(4, 64, 256), t(768, 256, s=0.05), t(768, 256, s=0.05))),
+        "matmul": (oi._matmul, (a, b)),
+        "conv_transpose": (oi._conv_transpose, (t(4, 128, 32, 32), t(128, 64, 3, 3, s=0.1), None, (2, 2),
+                                                [1, 1, 1, 1], [1, 1], 1)),
+        "resize": (oi._resize, (t(2, 8, 96, 96), [1.0, 1.0, 2.0, 2.0], None, "linear", "half_pixel")),
+    }
+
+    def run(fn, args, dev):
+        out = fn(*[v.to(dev) if isinstance(v, torch.Tensor) else v for v in args])
+        return out[0] if isinstance(out, tuple) else out
+
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = True, True
+    try:
+        for name, (fn, args) in cases.items():
+            want = run(fn, args, "cpu")
+            err = _scaled_err(run(fn, args, card), want)
+            bare = _scaled_err(run(fn.__wrapped__, args, card), want)
+            assert err <= 1e-5 < 1e-4 < bare, (name, err, bare)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def _letters(rng, n=2000, d=16, k=26):
+    """Overlapping Gaussian class clusters (chip_smoke's [ml] data, small)."""
+    centres = rng.uniform(0, 15, (k, d)).astype(np.float32)
+    y = rng.integers(0, k, n)
+    x = (centres[y] + rng.normal(0, 2.5, (n, d))).astype(np.float32)
+    return x, y
+
+
+@pytest.mark.cuda
+def test_ml_fits_on_card_equal_cpu(card):
+    """Every ml model fitted on the card and on the CPU from the same data
+    and the same draws: equal labels and predictions; trees, forests and
+    boosted trees equal (deterministic in-order histograms, f64-rounded
+    transcendental steps); other parameters within 1e-4 of their scale
+    (matrix products sum in another order on the card)."""
+    from opencv_tpu_torch.ml import classifiers as C
+    from opencv_tpu_torch.ml import clustering as CL
+    from opencv_tpu_torch.ml import trees as T
+
+    rng = np.random.default_rng(3)
+    x_np, y_np = _letters(rng)
+    xs = {d: torch.from_numpy(x_np).to(d) for d in (card, "cpu")}
+    ys = {d: torch.from_numpy(y_np).to(d) for d in (card, "cpu")}
+    yb = {d: (ys[d] == 0).long() for d in ys}
+
+    def both(fn):
+        return fn(card), fn("cpu")
+
+    def close(a, b, tol=1e-4):
+        a, b = a.cpu().double(), b.double()
+        assert float((a - b).abs().max()) <= tol * max(float(b.abs().max()), 1.0)
+
+    picks = CL.kmeans_pp_picks(torch.Generator().manual_seed(0), xs["cpu"], 26)
+    g, c = both(lambda d: CL.kmeans(None, xs[d], 26, iters=10, picks=picks))
+    assert torch.equal(g.labels.cpu(), c.labels)
+    close(g.centers, c.centers)
+    g, c = both(lambda d: CL.gmm_em(None, xs[d], 26, iters=10, picks=picks))
+    close(g.means, c.means)
+    close(g.weights, c.weights)
+
+    g, c = both(lambda d: C.knn_classify(xs[d][:1600], ys[d][:1600], xs[d][1600:], k=10, n_classes=26))
+    assert torch.equal(g.cpu(), c)
+    g, c = both(lambda d: C.naive_bayes_predict_log_proba(
+        C.train_naive_bayes(xs[d][:1600], ys[d][:1600], 26), xs[d][1600:]).argmax(1))
+    assert torch.equal(g.cpu(), c)
+    init = C.mlp_init_draws(torch.Generator().manual_seed(1), (16, 32, 26))
+    g, c = both(lambda d: C.train_mlp(None, xs[d], ys[d], hidden=(32,), n_classes=26, iters=20,
+                                      init=init))
+    for a, b in zip(g.weights, c.weights):
+        close(a, b)
+
+    draws = T.forest_draws(torch.Generator().manual_seed(2), 2000, 16, 4, 0.25)
+    g, c = both(lambda d: T.fit_random_forest(None, xs[d], ys[d], n_trees=4, depth=6,
+                                              n_classes=26, draws=draws))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(g.trees, c.trees))
+    g, c = both(lambda d: T.fit_adaboost(xs[d], yb[d], n_rounds=8, depth=3))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(g.trees, c.trees))
+    assert torch.equal(g.alpha.cpu(), c.alpha)
+    g, c = both(lambda d: T.fit_gbt(xs[d], yb[d], n_rounds=8, depth=3))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(g.trees, c.trees))
+
+    z = (x_np[:600] - x_np[:600].mean(0)) / x_np[:600].std(0)  # gradient steps want unit scale
+    x2 = {d: torch.from_numpy(z.astype(np.float32)).to(d) for d in xs}
+    y2 = {d: yb[d][:600] for d in yb}
+    g, c = both(lambda d: C.train_linear_svm(x2[d], 2.0 * y2[d] - 1.0, iters=200))
+    close(g.w, c.w)
+    g, c = both(lambda d: C.train_logistic_regression(x2[d], y2[d], iters=20))
+    close(g.w, c.w)
+    g, c = both(lambda d: C.train_kernel_svm(x2[d], y2[d], iters=100))
+    close(g.alpha, c.alpha)
+    idx = C.svmsgd_indices(torch.Generator().manual_seed(4), 600, 2000)
+    g, c = both(lambda d: C.train_svmsgd(x2[d], 2 * y2[d] - 1, iters=2000, indices=idx))
+    close(g.weights, c.weights)
+
+
+@pytest.mark.cuda
+def test_svmsgd_graph_replays_equal_eager_steps(card, monkeypatch):
+    """SVMSGD's CUDA-graph replays run the eager loop's kernels: the same
+    weights bit for bit (2 500 steps: two replays of 1 000 and 500 eager)."""
+    from opencv_tpu_torch.ml import classifiers as C
+
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(500, 16)).astype(np.float32)).to(card)
+    y = torch.from_numpy(np.where(rng.random(500) < 0.3, 1, -1)).to(card)
+    idx = C.svmsgd_indices(torch.Generator().manual_seed(0), 500, 2500)
+    graphed = C.train_svmsgd(x, y, iters=2500, indices=idx)
+    monkeypatch.setattr(C, "SGD_GRAPH_STEPS", 10_000)
+    eager = C.train_svmsgd(x, y, iters=2500, indices=idx)
+    assert torch.equal(graphed.weights, eager.weights) and torch.equal(graphed.shift, eager.shift)

@@ -158,6 +158,31 @@ def test_match_template_close_to_jax(method):
         assert np.unravel_index(pick(got), got.shape) == (22, 35)
 
 
+@pytest.mark.parametrize("method", tt.METHODS)
+def test_match_template_nan_where_jax_has_nan(method):
+    """A scene of flat blocks on a zero ground, without noise: over its
+    all-zero windows the window sum of squares from the integral image
+    is a small negative residue in both packages, so the two normed
+    methods that take its square root (sqdiff_normed, ccorr_normed) give
+    NaN there. The port's NaNs sit at JAX's places, and every method's
+    other scores are within the tolerances above (relative to their
+    magnitude: a near-zero window divides by a tiny root)."""
+    rng = np.random.default_rng(61)
+    img = np.zeros((480, 640), np.float32)
+    for _ in range(60):
+        y, x = rng.integers(0, 440), rng.integers(0, 600)
+        img[y:y + rng.integers(8, 40), x:x + rng.integers(8, 40)] = rng.uniform(60, 250)
+    tmpl = img[200:264, 300:364].copy()
+    want = np.asarray(jt.match_template(jnp.asarray(img), jnp.asarray(tmpl), method))
+    got = tt.match_template(img, tmpl, method, device=CPU).numpy()
+    nan = np.isnan(want)
+    assert nan.any() == (method in ("sqdiff_normed", "ccorr_normed"))
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    corr = np.asarray(jt.match_template(jnp.asarray(img), jnp.asarray(tmpl), "ccorr"))
+    atol = 1e-4 if method.endswith("normed") else 4e-6 * np.abs(corr).max()
+    np.testing.assert_allclose(got[~nan], want[~nan], rtol=1e-5, atol=atol)
+
+
 def test_match_template_unknown_method():
     with pytest.raises(ValueError):
         tt.match_template(np.zeros((8, 8), np.float32), np.zeros((2, 2), np.float32), "nope",

@@ -34,8 +34,8 @@ def test_every_slice_module_is_checked():
     the geometry slice's, the tracking-and-lanes slice's, the
     calibration-app and video-stabilization slice's, the panorama, QR
     and segmentation slice's, the detectors, stereo and dense-flow
-    slice's, the image-processing group's and the detection-and-inference
-    slice's modules are among them."""
+    slice's, the image-processing group's, the detection-and-inference
+    slice's and the io, ml and utils slice's modules are among them."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for mod in ("ops/lk.py", "ops/gftt.py", "ops/cuda/lk_sample.py", "core/pyramid.py",
                 "slam/vo.py", "geometry/five_point.py", "geometry/epnp.py", "geometry/ap3p.py",
@@ -55,7 +55,10 @@ def test_every_slice_module_is_checked():
                 "ops/lsd.py", "ops/bgsegm.py", "ops/photo.py", "ops/cascade.py",
                 "ml/__init__.py", "ml/traincascade.py", "dnn/__init__.py", "dnn/proto.py",
                 "dnn/layers.py", "dnn/net.py", "dnn/onnx_importer.py", "dnn/darknet_importer.py",
-                "dnn/caffe_importer.py", "dnn/tf_importer.py"):
+                "dnn/caffe_importer.py", "dnn/tf_importer.py", "io/__init__.py", "io/_jpeg.py",
+                "io/image.py", "io/video.py", "io/kitti.py", "ml/classifiers.py", "ml/clustering.py",
+                "ml/trees.py", "utils/__init__.py", "utils/guard.py", "utils/logger.py",
+                "utils/persistence.py", "utils/profiler.py", "utils/synth.py", "utils/viz.py"):
         assert f"opencv_tpu_torch/{mod}" in names
 
 
@@ -86,14 +89,17 @@ NUMPY_ENTRY_POINTS = ("calibrate_camera", "stereo_calibrate", "calibrate_fisheye
                       "edge_preserving_filter", "detail_enhance", "stylization", "pencil_sketch",
                       "cascade_score_map", "cascade_detect_multi_scale", "lbp_score_map",
                       "detect_multi_scale_lbp", "train_cascade", "train_cascade_lbp", "Net",
-                      "load_onnx", "load_darknet", "load_caffe", "load_tf", "prior_box")
+                      "load_onnx", "load_darknet", "load_caffe", "load_tf", "prior_box",
+                      "camera_matrix", "ml_model")
 
 
 def _numpy_entry_points():
     """{name: call} of every entry point that takes numpy and makes
     tensors, each called with no device."""
     from opencv_tpu_torch import convert
+    from opencv_tpu_torch.core import types
     from opencv_tpu_torch.geometry import calibration
+    from opencv_tpu_torch.ml import classifiers
     from opencv_tpu_torch import dnn
     from opencv_tpu_torch.ml import traincascade
     from opencv_tpu_torch.ops import (agast, akaze, bgsegm, brisk, brox, camshift, cascade, ccomp, chessboard,
@@ -255,6 +261,9 @@ def _numpy_entry_points():
         "load_caffe": lambda: dnn.load_caffe(""),
         "load_tf": lambda: dnn.load_tf(b""),
         "prior_box": lambda: dnn.layers.prior_box(2, 2, 8, 8, 4.0),
+        "camera_matrix": lambda: types.camera_matrix(1.0, 1.0, 0.0, 0.0),
+        "ml_model": lambda: convert.ml_model(classifiers.LinearModel(np.ones(2, np.float32),
+                                                                     np.float32(0))),
     }
 
 
