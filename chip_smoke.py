@@ -22,8 +22,10 @@ Phases:
      beside grid_sample and its bound), K5
      edge-clamped windows (win 21, N = 512, interior points); all exact;
      device times by CUDA events (kernel, plain version, one PyTorch
-     library call where one computes the same function) beside the bound,
-     and the first designs' times as labelled constants (FIRST_DESIGN_MS);
+     library call where one computes the same function; for K3 a bf16
+     matmul and an int8 torch._int_mm, each with topk) beside the bound
+     (K3's: the int8 tensor-core operations of its +-1 product), and the
+     first designs' times as labelled constants (FIRST_DESIGN_MS);
   4. the twenty-six paths, each cold, then warm WARM_RUNS times (once;
      twice with --measure, and then "the median" is of two), with the
      launch counts reset just before each warm run and read just after it:
@@ -166,8 +168,10 @@ Phases:
      z. dist: parallel/ on torch.distributed at the JAX package's global-BA
         scale (100 keyframes x 100 000 points, 8 views a point, 800 000
         observations): (a) bundle_adjust_sharded at world 1 over NCCL
-        against the single-device CG solver, within 4x its own run-to-run
-        spread; (b) two ranks sharing the card over gloo, against (a);
+        against the single-device CG solver, the same bits under
+        deterministic algorithms; (b) two ranks sharing the card over gloo,
+        against the single-device solver within 4x its sensitivity to its
+        summation order (or 1e-3);
         (c) the map-sharded 2-NN at world 1, 2000 x 128 000 x 256 bits,
         through K3 equal to knn_match_auto and through the dense block
         equal to knn_match; (d) dryrun_multichip(1); each rank process
@@ -209,7 +213,8 @@ sys.path.insert(0, REPO)
 # arithmetic instruction throughput), priced at the card's max SM clock
 HBM_BYTES_PER_S = 3.35e12
 FP32_ADD_PER_CLK_PER_SM = 128  # FADD; f32 min/max (FMNMX) issue no faster
-POPC_PER_CLK_PER_SM = 16  # 32-bit __popc
+POPC_PER_CLK_PER_SM = 16  # 32-bit __popc: the ceiling of K3's first design
+INT8_TOPS = 1.979e15  # dense int8 tensor-core operations per second (data sheet, 700 W)
 
 # Warm runs of each path after its cold run: one in the default run (the
 # smoke check must end inside its time limit on a slow host), two with
@@ -217,13 +222,16 @@ POPC_PER_CLK_PER_SM = 16  # 32-bit __popc
 WARM_RUNS = 1
 
 # Device ms of the first designs of K1/K2 (one launch per level, runtime
-# arc) and K4/K5 (one block per point), measured by this script before
-# their redesign on an NVIDIA H100 80GB HBM3 at 700.00 W. Constants, not
+# arc), K4/K5 (one block per point) and K3 (a CUDA-core thread per query,
+# popcounts; at 2000 x 128 000 x 256 and 2000 x 32 000 x 512 bits),
+# measured by this script before their redesign on an NVIDIA H100 80GB
+# HBM3 at 700.00 W. Constants, not
 # re-measured (the old kernels are gone): printed, labelled, in the [K…]
 # lines beside this run's times, and kept out of the measured `kernels`
 # record.
 FIRST_DESIGN_MS = {"fast_corners": 0.1119, "fast_score": 0.0179, "lk_sample": 0.0601,
-                   "lk_sample_n512": 0.0232, "lk_sample_clamp": 0.0044}
+                   "lk_sample_n512": 0.0232, "lk_sample_clamp": 0.0044,
+                   "knn2_hamming": 0.6271, "knn2_hamming_512": 0.3071}
 
 # SHA-256 of the first 100 frames of benchmarks/data/megamind_gray.avi as
 # the JAX package's reader (PIL) decodes them, uint8 [100, 528, 720] in C
@@ -503,32 +511,25 @@ def phase_kernels(frame0: np.ndarray, rates: dict) -> dict:
     n_ties = int((d1k == d2k).sum())
     k3_ms = device_time_ms(lambda: knn.knn2_hamming_cuda(query, train, valid), calls=5)
     k3_pl = device_time_ms(lambda: knn.knn2_hamming_plain(query, train, valid), calls=2, trials=20)
-    sq = knn.signed_descriptors(query).to(torch.bfloat16)
-    st = knn.signed_descriptors(train).to(torch.bfloat16)
-    big = torch.where(valid, 0.0, 1024.0).to(torch.bfloat16)
-
-    def library():
-        dist = (256.0 - sq @ st.T) * 0.5 + big
-        return torch.topk(dist, 2, dim=1, largest=False)
-
-    lib_ms = device_time_ms(library, calls=3)
+    lib_ms, lib8_ms = k3_library_ms(query, train, valid)
     n_valid = int(valid.sum())
-    b3 = (nq + nt) * 32 + nt + nq * 12
-    o3 = nq * n_valid * 8
+    b3 = (nq + nt) * 32 + nt + nq * 16
+    o3 = 2 * nq * n_valid * 256  # the +-1 product's int8 operations
+    bound = max(b3 / HBM_BYTES_PER_S, o3 / INT8_TOPS) * 1e3
     rows["knn2_hamming"] = dict(
         name="knn2_hamming (K3: streaming 2-NN Hamming, ratio test outside)", route="cuda",
         source="opencv_tpu_torch/csrc/knn2_hamming.cu",
         replaces="opencv_tpu/ops/pallas/knn.py:30",
-        max_abs_err=err3, ms=k3_ms, plain_ms=k3_pl, library_ms=lib_ms,
-        bound_ms=max(b3 / HBM_BYTES_PER_S, o3 / rates["popc"]) * 1e3,
-        bound_by="bytes" if b3 / HBM_BYTES_PER_S >= o3 / rates["popc"] else "operations",
+        max_abs_err=err3, ms=k3_ms, plain_ms=k3_pl, library_ms=lib_ms, library_int8_ms=lib8_ms,
+        bound_ms=bound, bound_by="bytes" if b3 / HBM_BYTES_PER_S >= o3 / INT8_TOPS else "operations",
         shapes=[(nq, 8), (nt, 8)],
     )
     print(f"[K3] exact on d1/d2/i1 ({n_ties} queries with d1 == d2, {nt - n_valid} invalid "
-          f"rows); kernel {k3_ms:.4f} ms, plain {k3_pl:.4f} ms, bf16 matmul+topk "
-          f"{lib_ms:.4f} ms", flush=True)
-    del sq, st
-    torch.cuda.empty_cache()
+          f"rows); kernel {k3_ms:.4f} ms (first design, a constant: "
+          f"{FIRST_DESIGN_MS['knn2_hamming']} ms; its popcount ceiling "
+          f"{nq * n_valid * 8 / rates['popc'] * 1e3:.4f} ms), int8 tensor-core bound {bound:.4f} ms "
+          f"({100 * bound / k3_ms:.1f} % of it), plain {k3_pl:.4f} ms, bf16 matmul+topk {lib_ms:.4f} ms, "
+          f"int8 _int_mm+topk {lib8_ms:.4f} ms", flush=True)
     phase_kernels_slice8(lvl0, rates, rows)
     rows.update(phase_lk_kernels(lvl0, rates))
     return rows
@@ -596,27 +597,50 @@ def phase_kernels_slice8(lvl0, rates: dict, rows: dict) -> None:
             fail(f"K3 at 512 bits: {nm} differs from its plain version: {(a != b).sum().item()} queries")
     ms = device_time_ms(lambda: knn.knn2_hamming_cuda(query, train, valid), calls=5)
     plain = device_time_ms(lambda: knn.knn2_hamming_plain(query, train, valid), calls=2)
-    sq = knn.signed_descriptors(query).to(torch.bfloat16)
-    st = knn.signed_descriptors(train).to(torch.bfloat16)
-    big = torch.where(valid, 0.0, 2048.0).to(torch.bfloat16)
-
-    def library():
-        return torch.topk((512.0 - sq @ st.T) * 0.5 + big, 2, dim=1, largest=False)
-
-    lib_ms = device_time_ms(library, calls=3)
+    lib_ms, lib8_ms = k3_library_ms(query, train, valid)
     n_valid = int(valid.sum())
-    b_s = ((nq + nt) * 64 + nt + nq * 12) / HBM_BYTES_PER_S
-    o_s = nq * n_valid * 16 / rates["popc"]  # one popcount per word: twice 256 bits'
+    b_s = ((nq + nt) * 64 + nt + nq * 16) / HBM_BYTES_PER_S
+    o_s = 2 * nq * n_valid * 512 / INT8_TOPS  # the +-1 product's int8 operations
+    bound = max(b_s, o_s) * 1e3
     row = rows["knn2_hamming"]
     row["max_abs_err"] = max(row["max_abs_err"], err)
-    row.update(ms_512=ms, plain_ms_512=plain, library_ms_512=lib_ms, bound_ms_512=max(b_s, o_s) * 1e3,
-               bound_by_512="bytes" if b_s >= o_s else "operations", shapes_512=[(nq, 16), (nt, 16)])
+    row.update(ms_512=ms, plain_ms_512=plain, library_ms_512=lib_ms, library_int8_ms_512=lib8_ms,
+               bound_ms_512=bound, bound_by_512="bytes" if b_s >= o_s else "operations",
+               shapes_512=[(nq, 16), (nt, 16)])
     print(f"[K3] 512 bits, {nq} x {nt}: exact on d1/d2/i1 ({int((got[0] == got[1]).sum())} queries with "
-          f"d1 == d2, {nt - n_valid} invalid rows); kernel {ms:.4f} ms, plain {plain:.4f} ms, bf16 "
-          f"matmul+topk {lib_ms:.4f} ms, bound {max(b_s, o_s) * 1e3:.4f} ms "
-          f"({row['bound_by_512']})", flush=True)
+          f"d1 == d2, {nt - n_valid} invalid rows); kernel {ms:.4f} ms (first design, a constant: "
+          f"{FIRST_DESIGN_MS['knn2_hamming_512']} ms), int8 tensor-core bound {bound:.4f} ms "
+          f"({100 * bound / ms:.1f} % of it; {row['bound_by_512']}), plain {plain:.4f} ms, bf16 "
+          f"matmul+topk {lib_ms:.4f} ms, int8 _int_mm+topk {lib8_ms:.4f} ms", flush=True)
+
+
+def k3_library_ms(query, train, valid) -> tuple[float, float]:
+    """Device ms of the same 2-NN through one PyTorch product and topk(2),
+    invalid rows pushed beyond FAR: the +-1 codes as a bf16 matmul, and as
+    int8 through torch._int_mm. Yardsticks only; the port calls neither."""
+    import torch
+
+    from opencv_tpu_torch.ops.cuda import knn
+
+    bits = 32 * query.shape[1]
+    sq = knn.signed_descriptors(query)
+    st = knn.signed_descriptors(train)
+    big = torch.where(valid, 0.0, 4.0 * bits)
+    sq16, st16, big16 = sq.to(torch.bfloat16), st.to(torch.bfloat16), big.to(torch.bfloat16)
+
+    def bf16():
+        return torch.topk((bits - sq16 @ st16.T) * 0.5 + big16, 2, dim=1, largest=False)
+
+    sq8, st8, big32 = sq.to(torch.int8), st.to(torch.int8), big.to(torch.int32)
     del sq, st
+
+    def int8():
+        return torch.topk((bits - torch._int_mm(sq8, st8.T)) // 2 + big32, 2, dim=1, largest=False)
+
+    out = device_time_ms(bf16, calls=3), device_time_ms(int8, calls=3)
+    del bf16, int8, sq16, st16, big16, sq8, st8, big32
     torch.cuda.empty_cache()
+    return out
 
 
 def lk_points(n: int, h: int, w: int, win: int, seed: int, odd: bool = True) -> np.ndarray:
@@ -4773,14 +4797,17 @@ DIST_BA = dict(n_cams=100, n_pts=100_000, views=8)
 DIST_LM = dict(iters=10, huber_delta=5e-3, cg_iters=60)
 DIST_KNN = (2000, 128_000)  # queries, 256-bit map rows: K3's table shape, the VO map's scale
 DIST_RANK_TIMEOUT_S = 300.0
-# The sharded runs against the single-device solver. Its own run-to-run
-# spread on cam_tvec (index_add_ on CUDA sums by atomics; 60 f32 CG
-# iterations on the 100-camera chain amplify the last bits) is the largest
-# difference among DIST_SINGLE_RUNS runs: 1.23e-3 on an H100, above the JAX
-# tests' 1e-3. (a) is held to DIST_SPREAD_FACTOR times the spread; (b) to
-# the JAX tests' bound, or to that where the spread exceeds it.
-DIST_SINGLE_RUNS = 3
-DIST_SPREAD_FACTOR = 4.0
+# The sharded runs against the single-device solver, compared under
+# deterministic algorithms. With atomics (index_add_ on CUDA) the solver
+# does not repeat itself: 60 f32 CG iterations on the 100-camera chain
+# amplify the last bits, so two runs differ on cam_tvec by up to ~2e-3 on an
+# H100, and three runs agreeing to 7.4e-5 once made a spread that a run of
+# the sharded solver then missed by 30x. Without atomics the solver is
+# reproducible: (a) world 1 must give its bits; (b) two ranks sum in
+# another order, and are held to DIST_ORDER_FACTOR times the solver's own
+# sensitivity to its summation order (the observations permuted), or the
+# JAX tests' 1e-3 where that is larger.
+DIST_ORDER_FACTOR = 4.0
 DIST_JAX_TVEC_BOUND = 1e-3
 
 
@@ -4823,6 +4850,19 @@ def ba_scene(n_cams: int = 100, n_pts: int = 100_000, views: int = 8, noise: flo
                 obs_valid=np.ones(len(obs_cam), bool), fixed_cams=fixed)
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms inside the block (index_add_ sums
+    without atomics), warnings only where an operation has none."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def _timed_lm(run, dev) -> tuple:
     """(result, seconds) of `run(iters)` for DIST_LM's iterations, after a
     warm `run(1)`."""
@@ -4862,7 +4902,8 @@ def dist_rank_main(out_dir: str, dev: str, scene: dict) -> None:
             return dist_ba.bundle_adjust_sharded(p, m, iters=iters, huber_delta=DIST_LM["huber_delta"],
                                                  cg_iters=DIST_LM["cg_iters"])
 
-        (opt, cost), secs = _timed_lm(run, dev)
+        with deterministic():
+            (opt, cost), secs = _timed_lm(run, dev)
         dist.all_reduce = all_reduce
         if rank == 0:
             np.savez(os.path.join(out_dir, "rank0.npz"), tvec=opt.cam_tvec.cpu().numpy(),
@@ -4875,14 +4916,14 @@ def phase_dist(card: str, dev: str = "cuda") -> dict:
     """[dist] parallel/ on torch.distributed. (a) bundle_adjust_sharded at
     world 1 (NCCL on the card) on the 800 000-observation scene (DIST_BA,
     DIST_LM; `auto` resolves to CG there) against the single-device
-    bundle_adjust(solver="cg") run DIST_SINGLE_RUNS times: the sharded
-    cam_tvec within DIST_SPREAD_FACTOR times the single-device solver's own
-    run-to-run spread; LM iterations/s, cost before and after. (b) two
-    ranks on this one card over gloo (rank 0 and rank 1 each hold half of
-    the observations), held to (a) at the JAX tests' bounds (cam_tvec within
-    1e-3, or DIST_SPREAD_FACTOR times the spread where that is larger;
-    final cost below 1e-2 of the initial); LM iterations/s, collectives a
-    step. (c) sharded_knn_match at
+    bundle_adjust(solver="cg"): under deterministic algorithms the same
+    bits; LM iterations/s (with atomics, as users run it), cost before and
+    after. (b) two ranks on this one card over gloo (rank 0 and rank 1
+    each hold half of the observations), under deterministic algorithms,
+    held to the single-device solver at the JAX tests' bounds (cam_tvec
+    within 1e-3, or DIST_ORDER_FACTOR times the solver's own sensitivity to
+    its summation order where that is larger; final cost below 1e-2 of the
+    initial); LM iterations/s, collectives a step. (c) sharded_knn_match at
     world 1, 2000 queries against 128 000 256-bit map rows (10 % invalid):
     without cross-check through K3, equal to knn_match_auto; with it through
     the dense block, equal to knn_match. (d) dryrun_multichip(1). Launch
@@ -4909,14 +4950,20 @@ def phase_dist(card: str, dev: str = "cuda") -> dict:
     lm = dict(huber_delta=DIST_LM["huber_delta"], cg_iters=DIST_LM["cg_iters"])
     cost0 = float(ba.cost(p))
 
-    def single(iters):
-        return ba.bundle_adjust(p, iters=iters, solver="cg", **lm)
+    it_s = DIST_LM["iters"]
 
-    singles = [_timed_lm(single, dev) for _ in range(DIST_SINGLE_RUNS)]
-    (s1, c1), s1_s = singles[0]
-    spread = max(float((a[0].cam_tvec - b[0].cam_tvec).abs().max())
-                 for i, (a, _) in enumerate(singles) for b, _ in singles[i + 1:])
-    b_bound = max(DIST_JAX_TVEC_BOUND, DIST_SPREAD_FACTOR * spread)
+    def single(iters, problem=p):
+        return ba.bundle_adjust(problem, iters=iters, solver="cg", **lm)
+
+    (s1, c1), s1_s = _timed_lm(single, dev)
+    perm = torch.randperm(n_obs, generator=torch.Generator().manual_seed(13)).to(p.obs_cam.device)
+    p_perm = p._replace(obs_cam=p.obs_cam[perm], obs_pt=p.obs_pt[perm], obs_uv=p.obs_uv[perm],
+                        obs_valid=p.obs_valid[perm])
+    with deterministic():
+        sd, cd = single(it_s)
+        sp, _ = single(it_s, p_perm)
+    order = float((sp.cam_tvec - sd.cam_tvec).abs().max())
+    b_bound = max(DIST_JAX_TVEC_BOUND, DIST_ORDER_FACTOR * order)
 
     g = torch.Generator(device=dev)
     g.manual_seed(12)
@@ -4936,6 +4983,8 @@ def phase_dist(card: str, dev: str = "cuda") -> dict:
         cuda_ops.reset_launch_counts()
         (sh, csh), sh_s = _timed_lm(
             lambda iters: dist_ba.bundle_adjust_sharded(p, m1, iters=iters, **lm), dev)
+        with deterministic():
+            shd, cshd = dist_ba.bundle_adjust_sharded(p, m1, iters=it_s, **lm)
         got = {k: dist_match.sharded_knn_match(query, train, mm, train_valid=tvalid, config=c)
                for k, c in cfgs.items()}
         _sync(dev)
@@ -4946,18 +4995,19 @@ def phase_dist(card: str, dev: str = "cuda") -> dict:
     finally:
         dist.destroy_process_group()
     a_err = float((sh.cam_tvec - s1.cam_tvec).abs().max())
+    a_equal = bool(torch.equal(cshd, cd) and all(torch.equal(x, y) for x, y in zip(shd, sd)))
     want = {"k3": matching.knn_match_auto(query, train, train_valid=tvalid, config=cfgs["k3"]),
             "dense": matching.knn_match(query, train, train_valid=tvalid, config=cfgs["dense"])}
     single_ms = {"k3": 1e3 * min(_secs(lambda: matching.knn_match_auto(
         query, train, train_valid=tvalid, config=cfgs["k3"]), dev) for _ in range(3)),
         "dense": 1e3 * min(_secs(lambda: matching.knn_match(
             query, train, train_valid=tvalid, config=cfgs["dense"]), dev) for _ in range(3))}
-    it_s = DIST_LM["iters"]
     print(f"[dist] (a) world 1 ({'NCCL' if on_card else 'gloo'}) on {dev} | {card}: cost "
           f"{cost0:.6g} -> {float(csh):.6g} (single device {float(c1):.6g}); LM iterations/s "
-          f"sharded {it_s / sh_s:.3f}, single device {it_s / s1_s:.3f}; cam_tvec sharded vs single "
-          f"{a_err:.3g}, largest of {DIST_SINGLE_RUNS} single-device runs against each other (the "
-          f"spread) {spread:.3g} (bound {DIST_SPREAD_FACTOR:g}x)", flush=True)
+          f"sharded {it_s / sh_s:.3f}, single device {it_s / s1_s:.3f}; under deterministic "
+          f"algorithms the sharded solver {'gives' if a_equal else 'DOES NOT give'} the "
+          f"single-device bits (with atomics cam_tvec sharded vs single {a_err:.3g}); the solver's "
+          f"sensitivity to its summation order (observations permuted) {order:.3g}", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -4966,12 +5016,13 @@ def phase_dist(card: str, dev: str = "cuda") -> dict:
                           "--dist-scene", json.dumps(DIST_BA)], 2, DIST_RANK_TIMEOUT_S)
         b_wall = time.perf_counter() - t0
         b = dict(np.load(os.path.join(tmp, "rank0.npz")))
-    b_err = float(np.abs(b["tvec"] - sh.cam_tvec.cpu().numpy()).max())
+    b_err = float(np.abs(b["tvec"] - sd.cam_tvec.cpu().numpy()).max())
     b_calls = (int(b["calls"]) - 1) / it_s  # one for the initial cost
     print(f"[dist] (b) two ranks on {'cuda:0' if on_card else 'cpu'} over gloo | {card}: cost "
-          f"{cost0:.6g} -> {float(b['cost']):.6g}; LM iterations/s {it_s / float(b['secs']):.3f}; "
-          f"{b_calls:g} all_reduce calls a step; cam_tvec vs (a) {b_err:.3g} (bound {b_bound:.3g}: "
-          f"the JAX tests' {DIST_JAX_TVEC_BOUND:g} or {DIST_SPREAD_FACTOR:g}x the spread); {b_wall:.1f} s "
+          f"{cost0:.6g} -> {float(b['cost']):.6g}; LM iterations/s {it_s / float(b['secs']):.3f} "
+          f"(deterministic algorithms); {b_calls:g} all_reduce calls a step; cam_tvec vs the "
+          f"single-device solver {b_err:.3g} (bound {b_bound:.3g}: the JAX tests' "
+          f"{DIST_JAX_TVEC_BOUND:g} or {DIST_ORDER_FACTOR:g}x the order sensitivity); {b_wall:.1f} s "
           f"with the ranks' start-up", flush=True)
 
     knn_eq = {k: all(torch.equal(getattr(got[k], f), getattr(want[k], f))
@@ -4990,14 +5041,14 @@ def phase_dist(card: str, dev: str = "cuda") -> dict:
           f"{d['accepted']} step accepted, {time.perf_counter() - t0:.1f} s", flush=True)
 
     bad = []
-    if not a_err <= DIST_SPREAD_FACTOR * spread:
-        bad.append(f"(a) sharded cam_tvec off the single-device solver by {a_err} > "
-                   f"{DIST_SPREAD_FACTOR} x its own spread {spread}")
+    if not a_equal:
+        bad.append("(a) under deterministic algorithms the sharded solver at world 1 does not give "
+                   f"the single-device bits (cam_tvec off by {float((shd.cam_tvec - sd.cam_tvec).abs().max())})")
     if not float(csh) < 1e-2 * cost0:
         bad.append(f"(a) cost {float(csh)} not below 1e-2 of {cost0}")
     if not (b_err <= b_bound and float(b["cost"]) < 1e-2 * cost0):
-        bad.append(f"(b) cam_tvec {b_err} from (a) (bound {b_bound}), cost {float(b['cost'])} "
-                   f"of {cost0}")
+        bad.append(f"(b) cam_tvec {b_err} from the single-device solver (bound {b_bound}), cost "
+                   f"{float(b['cost'])} of {cost0}")
     if not all(knn_eq.values()):
         bad.append(f"(c) sharded 2-NN equal to the single-device matcher: {knn_eq}")
     if on_card and counts["knn2_hamming"] <= 0:
@@ -5008,9 +5059,10 @@ def phase_dist(card: str, dev: str = "cuda") -> dict:
         fail("[dist] " + "; ".join(bad))
     return dict(units=3, unit="sharded call", card=card, launches=counts, n_obs=n_obs, cost0=cost0,
                 a=dict(cost=float(csh), lm_its_s=it_s / sh_s, single_lm_its_s=it_s / s1_s,
-                       tvec_vs_single=a_err, single_spread=spread),
+                       tvec_vs_single=a_err, deterministic_bits_equal=a_equal,
+                       order_sensitivity=order),
                 b=dict(cost=float(b["cost"]), lm_its_s=it_s / float(b["secs"]),
-                       all_reduce_per_step=b_calls, tvec_vs_a=b_err, tvec_bound=b_bound,
+                       all_reduce_per_step=b_calls, tvec_vs_single=b_err, tvec_bound=b_bound,
                        wall_s=b_wall),
                 c=dict(equal=knn_eq, sharded_ms=knn_ms, single_ms=single_ms,
                        matches={k: int(got[k].valid.sum()) for k in cfgs}),

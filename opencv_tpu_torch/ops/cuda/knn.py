@@ -1,7 +1,7 @@
 """Streaming 2-NN Hamming matcher: CUDA kernel `csrc/knn2_hamming.cu` and
 its plain version.
 
-Replaces the Pallas kernel `_knn2_kernel` of opencv_tpu/ops/pallas/knn.py
+Replaces the Pallas kernel `_knn2_kernel` of opencv_tpu/ops/pallas/knn.py:30
 (knn2_hamming / knn_match_streaming): a running (d1, d2, i1) per query
 over the train set, lowest index first on ties, invalid train rows never
 selected, then ratio and max-distance tests and no cross-check.
@@ -9,10 +9,16 @@ selected, then ratio and max-distance tests and no cross-check.
 Descriptors are int32 [N, W] packed words: W = 8 (256 bits, ORB) or
 W = 16 (512 bits, BRISK and AKAZE); the kernel is compiled for both.
 
-Bound and design: see the note at the top of csrc/knn2_hamming.cu (one
-thread per query, train tiles in shared memory, the train set split over
-blockIdx.y and merged in split order; popcount-bound, ~0.55 ms at
-2000 x 128000 x 256 bits on an H100 SXM, twice that at 512 bits).
+Bound and design: see the note at the top of csrc/knn2_hamming.cu. The
+distances are an exact int8 product on Hopper's tensor cores (wgmma, +-64
+query bytes against 0 / 2^m train bytes, one more k32 step carrying each
+train row's rank and validity), so the bound is the product's int8
+operations: ~0.060 ms at 2000 x 115 200 valid rows x 256 bits on an H100
+SXM. A producer warpgroup unpacks train tiles into a ring of shared-memory
+stages, two consumer warpgroups take the tensor cores in turns and fold
+each tile into a running top-2 per query without writing the distance
+matrix; the train set is split over blockIdx.y, about one block per SM,
+and the splits are merged in order.
 """
 
 from __future__ import annotations
@@ -90,9 +96,10 @@ def _lib():
 
 
 def _split_plan(nq: int, nt: int, tile: int, n_sm: int) -> tuple[int, int]:
-    """(rows_per_split, splits): about four blocks per SM in all."""
+    """(rows_per_split, splits): one wave of blocks, about one per SM (a
+    block fills its SM), each split a whole number of tiles."""
     q_blocks = -(-nq // 128)
-    want = max(1, min(-(-4 * n_sm // q_blocks), -(-nt // tile)))
+    want = max(1, min(n_sm // q_blocks, -(-nt // tile)))
     rows = -(-(-(-nt // want)) // tile) * tile
     return rows, -(-nt // rows)
 
@@ -122,14 +129,15 @@ def knn2_hamming_cuda(
     if train_valid is not None:
         if train_valid.shape != (nt,):
             raise ValueError("knn2 kernel: train_valid must be [Nt]")
-        tv = train_valid.to(device=t.device, dtype=torch.uint8).contiguous()
+        tv = train_valid.to(device=t.device).contiguous()
+        tv = tv.view(torch.uint8) if tv.dtype == torch.bool else tv.to(torch.uint8)
     lib = _lib()
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     rows, splits = _split_plan(nq, nt, lib.knn2_tile_rows(), n_sm)
     scratch = torch.empty((3, splits, nq), dtype=torch.int32, device=q.device)
     d1 = torch.empty((nq,), dtype=torch.float32, device=q.device)
     d2 = torch.empty_like(d1)
-    i1 = torch.empty((nq,), dtype=torch.int32, device=q.device)
+    i1 = torch.empty((nq,), dtype=torch.int64, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.knn2_launch(
             q.data_ptr(), t.data_ptr(), None if tv is None else tv.data_ptr(),
@@ -140,7 +148,7 @@ def knn2_hamming_cuda(
         )
     _build.check(lib, "knn2", rc)
     _counts.launch_counts["knn2_hamming"] += 1
-    return d1, d2, i1.long()
+    return d1, d2, i1
 
 
 def knn_match_streaming(

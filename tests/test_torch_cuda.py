@@ -113,38 +113,95 @@ def _tied_set(rng, nq, nt, words=8):
     t = rng.integers(0, 2 ** 32, size=(nt, words), dtype=np.uint64).astype(np.uint32)
     t[nt // 2: nt // 2 + nt // 8] = t[: nt // 8]  # exact ties across splits
     q = rng.integers(0, 2 ** 32, size=(nq, words), dtype=np.uint64).astype(np.uint32)
-    q[: nq // 2] = t[rng.integers(0, nt // 8, nq // 2)]
+    q[: nq // 2] = t[rng.integers(0, max(1, nt // 8), nq // 2)]
     q[: nq // 2, 0] ^= np.uint32(1)
     valid = rng.random(nt) > 0.1
     return (torch.from_numpy(q.view(np.int32)), torch.from_numpy(t.view(np.int32)),
             torch.from_numpy(valid))
 
 
+# K3 at the main paths' shapes, then ragged query and train counts around
+# the kernel's 64-query warpgroups, 128-query blocks and 128-row tiles
+K3_RAGGED = [(nq, nt) for nq in (1, 63, 64, 65, 127, 128, 129, 300, 1000)
+             for nt in (1, 127, 128, 129, 257)]
+
+
+def _assert_knn2_equals_plain(q, t, v):
+    """K3 against its plain version with the validity mask and without;
+    returns the kernel's (d1, d2, i1) with the mask."""
+    out = []
+    for valid in (v, None):
+        got = knn.knn2_hamming_cuda(q, t, valid)
+        want = knn.knn2_hamming_plain(q, t, valid)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        out.append(got)
+    return out[0]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq,nt", [(2000, 64 * 2000), (37, 1000), (300, 257)])
+@pytest.mark.parametrize("nq,nt", [(2000, 64 * 2000), (37, 1000), (300, 257)] + K3_RAGGED)
 def test_knn2_kernel_equals_plain(card, nq, nt):
     q, t, v = (a.to(card) for a in _tied_set(np.random.default_rng(7), nq, nt))
-    for valid in (v, None):
-        got = knn.knn2_hamming_cuda(q, t, valid)
-        want = knn.knn2_hamming_plain(q, t, valid)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
-    assert bool((got[0] == got[1]).any())  # ties present
+    got = _assert_knn2_equals_plain(q, t, v)
+    if nt >= 257 and nq >= 37:
+        assert bool((got[0] == got[1]).any())  # ties present
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq,nt", [(2000, 32000), (37, 1000), (300, 257)])
+@pytest.mark.parametrize("nq,nt", [(2000, 32000), (37, 1000), (300, 257)] + K3_RAGGED)
 def test_knn2_kernel_at_512_bits_equals_plain(card, nq, nt):
-    """K3's 4-chunk instantiation (BRISK's and AKAZE's [N, 16] words)."""
+    """K3's 16-word instantiation (BRISK's and AKAZE's [N, 16] words)."""
     q, t, v = (a.to(card) for a in _tied_set(np.random.default_rng(8), nq, nt, words=16))
-    for valid in (v, None):
-        got = knn.knn2_hamming_cuda(q, t, valid)
-        want = knn.knn2_hamming_plain(q, t, valid)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
-    assert bool((got[0] == got[1]).any())
+    got = _assert_knn2_equals_plain(q, t, v)
+    if nt >= 257 and nq >= 37:
+        assert bool((got[0] == got[1]).any())
     with pytest.raises(ValueError, match="8 or 16"):
         knn.knn2_hamming_cuda(q[:, :12].contiguous(), t[:, :12].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [8, 16])
+@pytest.mark.parametrize("kind", ["all_invalid", "single_valid", "all_tied", "complement",
+                                  "unaligned"])
+def test_knn2_kernel_edge_cases_equal_plain(card, kind, words):
+    """Every row invalid (d1 = d2 = 512, i1 = 0); one valid row (d2 stays
+    512); every row identical (the lowest index wins, d1 == d2); queries'
+    complements (d = bits: at 512 bits d = 512 never enters); query and
+    train sets at a 4-byte offset (not 16-byte aligned)."""
+    rng = np.random.default_rng(21)
+    nq, nt = 300, 1000
+    q, t, v = _tied_set(rng, nq, nt, words)
+    if kind == "all_invalid":
+        v[:] = False
+    elif kind == "single_valid":
+        v[:] = False
+        v[617] = True
+    elif kind == "all_tied":
+        t[:] = t[5]
+        q[: nq // 2] = t[0]
+        v[:5] = False  # the lowest valid index, 5, is not a lane's first column
+        v[5] = True
+    elif kind == "complement":
+        t[: nt // 2] = ~q[np.arange(nt // 2) % nq]
+        v[: nt // 2] = True
+    q, t, v = q.to(card), t.to(card), v.to(card)
+    if kind == "unaligned":
+        qb = torch.zeros(q.numel() + 1, dtype=torch.int32, device=card)
+        tb = torch.zeros(t.numel() + 1, dtype=torch.int32, device=card)
+        qb[1:] = q.flatten()
+        tb[1:] = t.flatten()
+        q, t = qb[1:].view(nq, words), tb[1:].view(nt, words)
+        assert q.data_ptr() % 16 and t.data_ptr() % 16
+    d1, d2, i1 = _assert_knn2_equals_plain(q, t, v)
+    if kind == "all_invalid":
+        assert bool((d1 == 512).all() and (d2 == 512).all() and (i1 == 0).all())
+    if kind == "single_valid":
+        assert bool((d2 == 512).all() and (i1 == 617).all())
+    if kind == "all_tied":
+        assert bool((d1 == d2).all() and (i1 == 5).all())
+    if kind == "complement" and words == 16:
+        assert bool((d1 < 512).all())
 
 
 def _lk_points(rng, n, h, w, win):
