@@ -26,7 +26,7 @@ Phases:
      matmul and an int8 torch._int_mm, each with topk) beside the bound
      (K3's: the int8 tensor-core operations of its +-1 product), and the
      first designs' times as labelled constants (FIRST_DESIGN_MS);
-  4. the twenty-six paths, each cold, then warm WARM_RUNS times (once;
+  4. the twenty-seven paths, each cold, then warm WARM_RUNS times (once;
      twice with --measure, and then "the median" is of two), with the
      launch counts reset just before each warm run and read just after it:
      a. ORB VO: VisualOdometry.process_sequence on a seeded 480x640
@@ -103,16 +103,24 @@ Phases:
         5 pairs' motions on the CPU within 0.05 px; find_transform_ecc
         ("affine") on 3 pairs against their RANSAC motion, Wiener
         deblurring of one frame, wobble suppression of the motions;
-     m. pano: examples/panorama.py's 3 views of 160x200 on the card and
-        on the CPU, 5 views of 480x640 (estimate_panorama and
+     apps: the port's seven applications (opencv_tpu_torch/examples/)
+        through their main() on the card, once each, at their defaults,
+        and vo_synthetic also at --frames 60 (where its loop closure
+        retrieves keyframes through K3); each must be ok, with its figures
+        within their bounds of the JAX examples' own on a CPU
+        (JAX_FIGURES_SLICE13, from tools/jax_slice13_figures.py); K1 and K3
+        bit for bit against their plain versions at the apps' own calls;
+     m. pano: the panorama app's card run from [apps] against the app on
+        the CPU, 5 views of 480x640 (estimate_panorama and
         stitch_panorama) cold then warm, stitch_pair on two of them
         against the CPU; K1 bit for bit against its plain version on
         every view's 4-level ORB pyramid;
-     n. qr: examples/qr_demo.py's round trip and 24 scenes of 480x640
-        (versions 1-3), detect and decode, every text read, the CPU's
-        quads and texts equal;
-     o. seg: examples/segmentation_demo.py (GrabCut, watershed, CamShift)
-        at its sizes with its verdict, and at 480x640; card against CPU;
+     n. qr: the qr_demo app's card run from [apps] against the app on
+        the CPU, and 24 scenes of 480x640 (versions 1-3), detect and
+        decode, every text read, the CPU's quads and texts equal;
+     o. seg: the segmentation_demo app's card run from [apps] (GrabCut,
+        watershed, CamShift at its sizes, its verdict) against the app on
+        the CPU, and the scenes at 480x640; card against CPU;
      p. feat2: AGAST (four kinds), BRISK and AKAZE (matched 0<->8, the
         share within 2 px of the true epipolar line), MSER on frames 0
         and 8, and frame 24's AKAZE rows against those of frames 0-15
@@ -1402,16 +1410,13 @@ def _sum_counts(*counts: dict) -> dict:
 
 
 def tbd_app_gt() -> list[np.ndarray]:
-    """examples/tbd_app.py's scene over 60 frames: [T, N, 4] boxes of its
-    three pedestrians (class 0) and two vehicles (class 1)."""
-    t = np.arange(60, dtype=np.float32)[:, None]
-    one = np.ones_like(t)
-    peds = np.stack([np.concatenate([20 + 3.0 * t, 40 + 0.5 * t, 14 * one, 30 * one], 1),
-                     np.concatenate([300 - 2.5 * t, 60 * one, 14 * one, 30 * one], 1),
-                     np.concatenate([40 + 2.0 * t, 120 * one, 14 * one, 30 * one], 1)], 1)
-    veh = np.stack([np.concatenate([10 + 6.0 * t, 200 * one, 40 * one, 24 * one], 1),
-                    np.concatenate([500 - 5.0 * t, 230 * one, 44 * one, 26 * one], 1)], 1)
-    return [peds.astype(np.float32), veh.astype(np.float32)]
+    """The tbd app's scene (opencv_tpu_torch/examples/tbd_app.py) over 60
+    frames: [T, N, 4] boxes of its three pedestrians (class 0) and two
+    vehicles (class 1)."""
+    from opencv_tpu_torch.examples.tbd_app import gt_boxes
+
+    boxes = [gt_boxes(t) for t in range(60)]
+    return [np.stack([b[c] for b in boxes]) for c in (0, 1)]
 
 
 def crowd_gt() -> list[np.ndarray]:
@@ -1791,19 +1796,14 @@ LANE_SCALE = 2  # the lanes at twice the example's coordinates, on 480x640
 
 
 def lane_frame(rng) -> np.ndarray:
-    """examples/lane_detection.py's road on 480x640 at LANE_SCALE times
-    its coordinates: two converging lanes (2 px thick, 220) on uniform
-    noise 20-60."""
-    h, w = 480, 640
-    img = rng.uniform(20, 60, size=(h, w)).astype(np.float32)
-    for x0, y0, x1, y1 in LANES:
-        x0, y0, x1, y1 = (LANE_SCALE * v for v in (x0, y0, x1, y1))
-        n = int(max(abs(x1 - x0), abs(y1 - y0)) * 2 + 1)
-        t = np.linspace(0, 1, n)
-        xs = np.round(x0 + t * (x1 - x0)).astype(int)
-        ys = np.round(y0 + t * (y1 - y0)).astype(int)
-        for d in range(2):
-            img[np.clip(ys, 0, h - 1), np.clip(xs + d, 0, w - 1)] = 220.0
+    """The lane app's road (opencv_tpu_torch/examples/lane_detection.py)
+    on 480x640 at LANE_SCALE times its coordinates: two converging lanes
+    (2 px thick, 220) on uniform noise 20-60."""
+    from opencv_tpu_torch.examples.lane_detection import draw_line
+
+    img = rng.uniform(20, 60, size=(480, 640)).astype(np.float32)
+    for lane in LANES:
+        draw_line(img, *(LANE_SCALE * v for v in lane))
     return img
 
 
@@ -1820,14 +1820,10 @@ def lane_pipeline(img):
 
 def lanes_found(xyxy: np.ndarray) -> list[bool]:
     """Per lane: are a segment's two ends within 48 px of its ends,
-    summed (lane_detection.py's bound of 2 x 12 px, at twice its scale)?"""
-    found = []
-    for x0, y0, x1, y1 in LANES:
-        p, q = LANE_SCALE * np.array([x0, y0], np.float64), LANE_SCALE * np.array([x1, y1], np.float64)
-        found.append(any(min(np.linalg.norm(s[:2] - p) + np.linalg.norm(s[2:] - q),
-                             np.linalg.norm(s[:2] - q) + np.linalg.norm(s[2:] - p)) < 48.0
-                         for s in xyxy))
-    return found
+    summed (the lane app's bound of 2 x 12 px, at twice its scale)?"""
+    from opencv_tpu_torch.examples.lane_detection import has_segment_near
+
+    return [has_segment_near(xyxy, *(LANE_SCALE * v for v in lane), tol=12 * LANE_SCALE) for lane in LANES]
 
 
 def phase_lane(n_frames: int = 30, dev: str = "cuda") -> dict:
@@ -1883,48 +1879,22 @@ def phase_lane(n_frames: int = 30, dev: str = "cuda") -> dict:
 
 # ------------------------------------------------------------ calibration app and video stabilization slice
 
-APP_COLS, APP_ROWS, APP_SQ = 7, 5, 40  # examples/calibration_app.py's board (inner corners, px)
-APP_SQUARE_WORLD = 0.1
-APP_K = np.array([[520.0, 0, 326.0], [0, 525.2, 236.0], [0, 0, 1]])  # the app's K_GT
 CIRCLES_STEP, CIRCLES_R = 110, 27  # a 5x4 grid of dark disks filling 480x640
 
 
-def calibapp_views(n_views: int = 8, seed: int = 0, dev: str = "cuda"):
-    """examples/calibration_app.py's views: its 7x5 board (40 px squares,
-    0.1 m) rendered with warp_perspective through the app's K_GT at its
-    seeded poses (roll, pitch, yaw up to +-0.35 rad, 2.1-2.9 m), 480x640;
+def calibapp_views(n_views: int = 8, dev: str = "cuda"):
+    """The calibration app's views (opencv_tpu_torch/examples/
+    calibration_app.py: its 7x5 board, 40 px squares of 0.1 m, rendered
+    with warp_perspective through its K_GT at its seeded poses, 480x640),
     and one circles-grid view: tests/test_msseg_circles.py's `_grid_image`
     drawing (dark disks of 30 on 220) for a 5x4 grid at step 110 px and
-    radius 27, centred in 480x640. Returns (board views on the
-    device, board object points [35, 3], circles view, true centres)."""
+    radius 27, centred in 480x640. Returns (board views on the device,
+    board object points [35, 3], circles view, true centres)."""
     import torch
 
-    from opencv_tpu_torch.core import imgproc
-    from opencv_tpu_torch.geometry.rotation import rodrigues
+    from opencv_tpu_torch.examples import calibration_app as app
 
-    bw, bh = (APP_COLS + 1) * APP_SQ, (APP_ROWS + 1) * APP_SQ
-    board = np.full((bh + 2 * APP_SQ, bw + 2 * APP_SQ), 210.0, np.float32)
-    for i in range(APP_ROWS + 1):
-        for j in range(APP_COLS + 1):
-            if (i + j) % 2 == 0:
-                board[APP_SQ * (i + 1):APP_SQ * (i + 2), APP_SQ * (j + 1):APP_SQ * (j + 2)] = 30.0
-    board_t = torch.from_numpy(board).to(dev)
-    s = APP_SQUARE_WORLD / APP_SQ
-    to_world = np.array([[s, 0, -(bw / 2 + APP_SQ) * s], [0, s, -(bh / 2 + APP_SQ) * s], [0, 0, 1]])
-    rng = np.random.default_rng(seed)
-    views = []
-    for _ in range(n_views):
-        rvec = rng.uniform(-0.35, 0.35, 3).astype(np.float32)
-        tvec = np.array([rng.uniform(-0.2, 0.2), rng.uniform(-0.15, 0.15), rng.uniform(2.1, 2.9)])
-        R = rodrigues(torch.from_numpy(rvec)).numpy().astype(np.float64)
-        hom = APP_K @ np.column_stack([R[:, 0], R[:, 1], tvec]) @ to_world
-        img = imgproc.warp_perspective(board_t, np.linalg.inv(hom).astype(np.float32), 480, 640)
-        views.append(img.clamp(0.0, 255.0))
-    obj = np.zeros((APP_ROWS * APP_COLS, 3), np.float32)
-    jj, ii = np.meshgrid(np.arange(APP_COLS), np.arange(APP_ROWS))
-    obj[:, 0] = jj.reshape(-1) * APP_SQUARE_WORLD
-    obj[:, 1] = ii.reshape(-1) * APP_SQUARE_WORLD
-
+    views, obj = app.views(n_views, 0.0, dev), app.object_points()
     h, w = 480, 640
     x0, y0 = (w - 4 * CIRCLES_STEP) // 2, (h - 3 * CIRCLES_STEP) // 2
     yy, xx = np.mgrid[0:h, 0:w]
@@ -1947,13 +1917,14 @@ def calibapp_run(views, obj, circles, dev: str = "cuda") -> dict:
     the host clock around synchronised work."""
     import torch
 
+    from opencv_tpu_torch.examples.calibration_app import COLS, K_GT, ROWS
     from opencv_tpu_torch.geometry import calibration
     from opencv_tpu_torch.ops import chessboard
 
     found, det_s = [], []
     for img in views:
         t0 = time.perf_counter()
-        c = chessboard.find_chessboard_corners(img, (APP_COLS, APP_ROWS), device=dev)
+        c = chessboard.find_chessboard_corners(img, (COLS, ROWS), device=dev)
         det_s.append(time.perf_counter() - t0)
         found.append(c)
     pts = [c for c in found if c is not None]
@@ -1975,8 +1946,8 @@ def calibapp_run(views, obj, circles, dev: str = "cuda") -> dict:
     res2 = calib([p for i, p in enumerate(pts) if i != worst])
     calib_s = time.perf_counter() - t0
     best = res2 if res2.rms < res.rms else res
-    ok = bool(best.rms < 0.8 and abs(best.K[0, 0] - APP_K[0, 0]) < 0.03 * APP_K[0, 0]
-              and abs(best.K[1, 1] - APP_K[1, 1]) < 0.03 * APP_K[1, 1])
+    ok = bool(best.rms < 0.8 and abs(best.K[0, 0] - K_GT[0, 0]) < 0.03 * K_GT[0, 0]
+              and abs(best.K[1, 1] - K_GT[1, 1]) < 0.03 * K_GT[1, 1])
     t0 = time.perf_counter()
     grid, grid_ok = chessboard.find_circles_grid(circles, (5, 4), device=dev)
     circles_s = time.perf_counter() - t0
@@ -1992,6 +1963,7 @@ def phase_calibapp(dev: str = "cuda") -> dict:
     CPU's corners within 1e-3 px of the card's, its circles grid equal."""
     import torch
 
+    from opencv_tpu_torch.examples.calibration_app import COLS, K_GT, ROWS
     from opencv_tpu_torch.ops import ccomp, chessboard
     from opencv_tpu_torch.ops.chessboard import median
 
@@ -2010,7 +1982,7 @@ def phase_calibapp(dev: str = "cuda") -> dict:
         fail(f"calibapp: the app's verdict is DEGRADED (RMS {g['res2'].rms:.4f} px, K {g['res2'].K.tolist()})")
     worst_px = 0.0
     for img, c in zip(views, g["found"]):
-        cpu = chessboard.find_chessboard_corners(img.cpu(), (APP_COLS, APP_ROWS), device="cpu")
+        cpu = chessboard.find_chessboard_corners(img.cpu(), (COLS, ROWS), device="cpu")
         if cpu is None:
             fail("calibapp: the CPU found no board where the card found one")
         worst_px = max(worst_px, float(np.abs(c - cpu).max()))
@@ -2036,7 +2008,7 @@ def phase_calibapp(dev: str = "cuda") -> dict:
                ccomp_sweeps=lab.sweeps, ccomp_host_reads=lab.host_reads,
                card_vs_cpu_corners_px=worst_px, launches=runs[0])
     print(f"[calibapp] {n_found} of {len(views)} views 480x640: board found; RMS {r1.rms:.4f} px, fx "
-          f"{r1.K[0, 0]:.2f} (truth {APP_K[0, 0]:.1f}) fy {r1.K[1, 1]:.2f} (truth {APP_K[1, 1]:.1f}) cx "
+          f"{r1.K[0, 0]:.2f} (truth {K_GT[0, 0]:.1f}) fy {r1.K[1, 1]:.2f} (truth {K_GT[1, 1]:.1f}) cx "
           f"{r1.K[0, 2]:.2f} cy {r1.K[1, 2]:.2f}; per-view error {np.round(g['per_view'], 4).tolist()} "
           f"-> view {g['worst']} dropped, RMS {r2.rms:.4f} px, fx {r2.K[0, 0]:.2f} fy {r2.K[1, 1]:.2f}; "
           f"verdict {'OK' if g['ok'] else 'DEGRADED'}", flush=True)
@@ -2146,13 +2118,253 @@ def phase_stab(base: np.ndarray, n_frames: int = 60, dev: str = "cuda") -> dict:
     return res
 
 
+# ------------------------------------------------------------ [apps]: the port's applications
+
+# The port's seven applications (opencv_tpu_torch/examples/) as [apps] runs
+# them: each at its defaults, and vo_synthetic also at its own flag
+# --frames 60. At its default 20 frames vo_synthetic makes 3 keyframes, and
+# its loop closure retrieves keyframes (K3 against the DB of 64 x 600 =
+# 38 400 rows) only past loop_exclude_recent + 1 = 9 keyframes: at 60
+# frames it makes 11 and retrieves twice.
+APP_RUNS = {"tbd_app": [], "lane_detection": [], "vo_synthetic": [], "vo_synthetic_60": ["--frames", "60"],
+            "calibration_app": [], "segmentation_demo": [], "qr_demo": [], "panorama": []}
+
+# The JAX package's own figures of its examples/ on a CPU, as each prints
+# them (tools/jax_slice13_figures.py): [apps] holds the card's to them
+JAX_FIGURES_SLICE13 = {"tbd_app": {"pedestrians": {"mota": 1.0, "motp": 0.884, "tp": 165, "fp": 0, "fn": 0},
+                                   "vehicles": {"mota": 1.0, "motp": 0.93, "tp": 110, "fp": 0, "fn": 0},
+                                   "ok": True},
+                       "lane_detection": {"edge_px": 749, "segments": 16, "left": True, "right": True},
+                       "vo_synthetic": {"path": 2.47,
+                                        "ate": 0.0097,
+                                        "frames": 20,
+                                        "state": "tracking",
+                                        "keyframes": 3,
+                                        "landmarks": 348},
+                       "vo_synthetic_60": {"path": 7.67,
+                                           "ate": 0.0193,
+                                           "frames": 60,
+                                           "state": "tracking",
+                                           "keyframes": 11,
+                                           "landmarks": 1205},
+                       "calibration_app": {"found": [True, True, True, True, True, True, True, True],
+                                           "first": {"rms": 0.139, "fx": 519.3, "fy": 524.7, "cx": 330.7, "cy": 234.5},
+                                           "after_drop": {"rms": 0.105},
+                                           "dropped": 7,
+                                           "ok": True},
+                       "segmentation_demo": {"grabcut_fg_px": 989,
+                                             "grabcut_iou": 1.0,
+                                             "basin_sizes": {"1": 3850, "2": 2380},
+                                             "dam_px": 70,
+                                             "camshift_err_px": 0.49,
+                                             "camshift_frames": 6,
+                                             "ok": True},
+                       "qr_demo": {"detected": True,
+                                   "quad": [[127.0, 107.0], [217.0, 107.0], [127.0, 197.0], [217.0, 197.0]],
+                                   "text": "opencv_tpu says hi",
+                                   "ok": True},
+                       "panorama": {"focal": 189.1, "pairs": 2, "tree": [[1, 2], [1, 0]], "size": [382, 157]}}
+
+
+def run_app(name: str, argv: list[str]) -> tuple[dict, list[str], float]:
+    """`opencv_tpu_torch.examples.<name>.main(argv)` with its printed lines
+    captured: (its result, the lines, wall seconds between synchronised
+    points)."""
+    import importlib
+    import io
+
+    import torch
+
+    mod = importlib.import_module(f"opencv_tpu_torch.examples.{name}")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = mod.main(argv)
+    torch.cuda.synchronize()
+    return res, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def app_checks(key: str, got: dict, jax: dict) -> list[tuple]:
+    """(figure, the card's, the JAX example's, the bound, within it) of app
+    run `key`: TBD counters equal and MOTA/MOTP within 1e-3; lane segments
+    and lanes equal; the QR text equal and its quad within 0.5 px; basins
+    equal, GrabCut IoU within 1e-3, CamShift error within 0.05 px; RMS
+    within 1e-3 px and K within 0.1 px; the VO's ATE under its own 5 % of
+    the path (JAX's beside it); the panorama's pairs and tree equal and its
+    focal within 15 px of the true 200 (JAX's beside it)."""
+    out = []
+
+    def eq(label, g, w):
+        out.append((label, g, w, "equal", g == w))
+
+    def near(label, g, w, tol):
+        out.append((label, g, w, f"within {tol}", abs(g - w) <= tol))
+
+    name = key.removesuffix("_60")
+    if name == "tbd_app":
+        for cls in ("pedestrians", "vehicles"):
+            for k in ("tp", "fp", "fn"):
+                eq(f"{cls} {k.upper()}", got[cls][k], jax[cls][k])
+            for k in ("mota", "motp"):
+                near(f"{cls} {k.upper()}", got[cls][k], jax[cls][k], 1e-3)
+    elif name == "lane_detection":
+        for k in ("segments", "left", "right"):
+            eq(k, got[k], jax[k])
+    elif name == "qr_demo":
+        eq("text", got["text"], jax["text"])
+        out.append(("quad px off JAX's", float(np.abs(np.subtract(got["quad"], jax["quad"])).max()), 0.0,
+                    "within 0.5", float(np.abs(np.subtract(got["quad"], jax["quad"])).max()) <= 0.5))
+    elif name == "segmentation_demo":
+        eq("basin sizes", {str(k): v for k, v in got["basin_sizes"].items()},
+           {str(k): v for k, v in jax["basin_sizes"].items()})
+        near("GrabCut IoU", got["grabcut_iou"], jax["grabcut_iou"], 1e-3)
+        near("CamShift error px", got["camshift_err_px"], jax["camshift_err_px"], 0.05)
+    elif name == "calibration_app":
+        near("RMS px", got["first"]["rms"], jax["first"]["rms"], 1e-3)
+        near("RMS after the drop px", got["after_drop"]["rms"], jax["after_drop"]["rms"], 1e-3)
+        for k in ("fx", "fy", "cx", "cy"):
+            near(f"{k} px", got["first"][k], jax["first"][k], 0.1)
+    elif name == "vo_synthetic":
+        out.append(("ATE share of the path", got["ate_share"], jax["ate"] / jax["path"], "< 0.05",
+                    got["ate_share"] < 0.05))
+    elif name == "panorama":
+        eq("confident pairs", got["pairs"], jax["pairs"])
+        eq("tree", [list(e) for e in got["tree"]], [list(e) for e in jax["tree"]])
+        out.append(("focal (truth 200)", got["focal"], jax["focal"], "within 15 of 200",
+                    abs(got["focal"] - 200.0) <= 15.0))
+    return out
+
+
+def _jsonable(x):
+    return json.loads(json.dumps(x, default=lambda o: o.item() if hasattr(o, "item") else str(o)))
+
+
+def kernel_calls_exact(calls: dict) -> dict:
+    """K1 and K3 held bit for bit against their plain versions at the
+    apps' own calls (the first call of each shape, recorded during [apps]):
+    each recorded K1 call (a pyramid's levels) through the kernel and the
+    plain version level by level, each K3 call likewise; each call's
+    device ms through the kernel and through the plain version. These
+    launches are checks, outside the path's counted runs. {kernel:
+    dict(shapes, max_abs_err, ms=[(kernel, plain) per call])}."""
+    import torch
+
+    from opencv_tpu_torch.ops.cuda import fast_kernel, knn
+
+    out = {}
+    shapes, err, ms = [], 0.0, []
+    for levels, args in calls["fast_corners"]:
+        ms.append((device_time_ms(lambda: fast_kernel.fast_corners_levels(levels, *args)),
+                   device_time_ms(lambda: [fast_kernel.fast_corners_plain(lvl, *args) for lvl in levels],
+                                  calls=3)))
+        for lvl, (s_k, n_k) in zip(levels, fast_kernel.fast_corners_levels(levels, *args)):
+            s_p, n_p = fast_kernel.fast_corners_plain(lvl, *args)
+            torch.cuda.synchronize()
+            if not (torch.equal(s_k, s_p) and torch.equal(n_k, n_p)):
+                fail(f"[apps] K1 differs from its plain version at {tuple(lvl.shape)}: "
+                     f"{(s_k != s_p).sum().item() + (n_k != n_p).sum().item()} values")
+            err = max(err, max_abs_err((s_k, s_p), (n_k, n_p)))
+        shapes.append([list(lvl.shape) for lvl in levels])
+    out["fast_corners"] = dict(shapes=shapes, max_abs_err=err, ms=ms)
+    shapes, err, ms = [], 0.0, []
+    for q, t, v in calls["knn2_hamming"]:
+        ms.append((device_time_ms(lambda: knn.knn2_hamming_cuda(q, t, v), calls=5),
+                   device_time_ms(lambda: knn.knn2_hamming_plain(q, t, v), calls=2)))
+        got, want = knn.knn2_hamming_cuda(q, t, v), knn.knn2_hamming_plain(q, t, v)
+        torch.cuda.synchronize()
+        for nm, a, b in zip(("d1", "d2", "i1"), got, want):
+            if not torch.equal(a, b):
+                fail(f"[apps] K3 {nm} differs from its plain version at {tuple(q.shape)} x "
+                     f"{tuple(t.shape)}: {(a != b).sum().item()} queries")
+        err = max(err, max_abs_err(*zip(got, want)))
+        shapes.append([list(q.shape), list(t.shape), int(v.sum()) if v is not None else None])
+    out["knn2_hamming"] = dict(shapes=shapes, max_abs_err=err, ms=ms)
+    return out
+
+
+def phase_apps(dev: str = "cuda") -> dict:
+    """[apps] each of the port's applications once through its `main()`, on
+    the card, at its defaults (APP_RUNS): each must return ok, and its
+    figures are held to the JAX example's (JAX_FIGURES_SLICE13) by
+    `app_checks`; the launch counts are reset before each run and read
+    after it. The first K1 and K3 call of each shape is recorded (the
+    kernel still runs) and afterwards held bit for bit against the plain
+    version (`kernel_calls_exact`). Returns the figures, seconds and
+    launches of each run, the results of the runs that [pano], [qr] and
+    [seg] check against the CPU ("results"), and the kernel checks
+    ("kernel_checks")."""
+    import torch
+
+    from opencv_tpu_torch.ops import cuda as cuda_ops
+    from opencv_tpu_torch.ops.cuda import fast_kernel, knn
+
+    calls = {"fast_corners": [], "knn2_hamming": []}
+    seen = set()
+    k1, k3 = fast_kernel.fast_corners_levels, knn.knn2_hamming_cuda
+
+    def record_k1(levels, *args):
+        levels = list(levels)
+        key = ("k1", tuple(tuple(lvl.shape) for lvl in levels), args)
+        if key not in seen:
+            seen.add(key)
+            calls["fast_corners"].append(([lvl.clone() for lvl in levels], args))
+        return k1(levels, *args)
+
+    def record_k3(query, train, train_valid=None):
+        key = ("k3", tuple(query.shape), tuple(train.shape))
+        if key not in seen:
+            seen.add(key)
+            calls["knn2_hamming"].append((query.clone(), train.clone(),
+                                          None if train_valid is None else train_valid.clone()))
+        return k3(query, train, train_valid)
+
+    runs, results, total = {}, {}, {k: 0 for k in cuda_ops.launch_counts}
+    with tempfile.TemporaryDirectory() as tmp:
+        fast_kernel.fast_corners_levels, knn.knn2_hamming_cuda = record_k1, record_k3
+        try:
+            for key, argv in APP_RUNS.items():
+                name = key.removesuffix("_60")
+                argv = argv + (["--out", os.path.join(tmp, "panorama.png")] if name == "panorama" else [])
+                cuda_ops.reset_launch_counts()
+                res, lines, secs = run_app(name, argv)
+                counts = dict(cuda_ops.launch_counts)
+                for line in lines:
+                    print(f"[apps:{key}] {line}", flush=True)
+                checks = app_checks(key, res, JAX_FIGURES_SLICE13[key])
+                figures = {k: v for k, v in res.items() if not isinstance(v, np.ndarray)}
+                runs[key] = _jsonable(dict(figures, run_s=secs, launches=counts, checks=checks))
+                results[key] = res
+                total = {k: total[k] + counts[k] for k in total}
+                print(f"[apps] {key}: {'ok' if res['ok'] else 'NOT ok'}, {secs:.2f} s wall; "
+                      + "; ".join(f"{lab} {g} (JAX {w}; {bound}{'' if ok else ': FAILED'})"
+                                  for lab, g, w, bound, ok in checks)
+                      + f"; K1 {counts['fast_corners']}, K3 {counts['knn2_hamming']} launches", flush=True)
+                if not (res["ok"] and all(c[-1] for c in checks)):
+                    fail(f"[apps] {key}: ok={res['ok']}, checks {checks}")
+        finally:
+            fast_kernel.fast_corners_levels, knn.knn2_hamming_cuda = k1, k3
+    torch.cuda.synchronize()
+    kchecks = kernel_calls_exact(calls)
+    print(f"[apps] {len(runs)} runs ok in {sum(r['run_s'] for r in runs.values()):.1f} s of wall time; "
+          f"launches {total}", flush=True)
+    for key, what in (("fast_corners", "K1 at the pyramid"),
+                      ("knn2_hamming", "K3 at ([query], [train], valid rows)")):
+        for shape, (k_ms, p_ms) in zip(kchecks[key]["shapes"], kchecks[key]["ms"]):
+            print(f"[apps] {what} {shape}: exact; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms", flush=True)
+    for k in ("fast_corners", "knn2_hamming"):
+        if total[k] <= 0:
+            fail(f"[apps] kernel {k} was not launched by the applications")
+    return dict(units=len(runs), unit="app run", runs=runs, launches=total, results=results,
+                kernel_checks=kchecks)
+
+
 # ------------------------------------------------------------ panorama, QR and segmentation slice
 
 # examples/panorama.py's scene (a) and its 480x640 counterpart (b): a plane
 # at z = 1 textured by a bilinearly upsampled uniform(30, 225) grid, seen by
 # pure rotations about y; (b) keeps (a)'s 1:1 sampling (ts / (2 span) = F)
 # and 8-px blobs
-PANO_A = dict(F=200.0, h=160, w=200, yaws=(-0.45, 0.0, 0.45), ts=720, span=1.8, n_features=700)
 PANO_B = dict(F=600.0, h=480, w=640, yaws=(-0.6, -0.3, 0.0, 0.3, 0.6), ts=2880, span=2.4,
               n_features=2000)
 
@@ -2173,8 +2385,8 @@ def torch_threads(n: int):
 
 
 def pano_views(cfg: dict, dev: str = "cuda"):
-    """Render the pure-rotation views of examples/panorama.py with the
-    port's warp_perspective. Returns (views [list of f32 [H, W] on dev],
+    """Render pure-rotation views of examples/panorama.py's scene at
+    `cfg`'s size with the port's warp_perspective. Returns (views [list of f32 [H, W] on dev],
     rotations [N, 3, 3])."""
     import torch
 
@@ -2240,48 +2452,50 @@ def k1_exact_on_orb_pyramid(view, n_features: int) -> float:
     return err
 
 
-def phase_pano(dev: str = "cuda") -> dict:
-    """[pano] (a) examples/panorama.py: 3 views of 160x200 (F = 200, yaws
-    -0.45/0/0.45, 700 features, seed 1, 2 bands); (b) 5 views of 480x640
-    (F = 600, yaws -0.6..0.6, 2000 features), cold, then warm WARM_RUNS
-    times; stitch_pair on views 2 and 3 of (b). Bounds: focal within 12 %,
-    relative rotations < 3 deg, (a)'s tree of 2 edges
-    (tests/test_global_stitch.py:70-79). The CPU gets the same RANSAC
-    subsets (one CPU generator per call): on (a), focal within 1e-3
-    relative, rotations within 0.05 deg, and (a)'s panorama composed from
-    the card's rotations on both devices with >= 99 % of its pixels within
-    0.5 grey levels; stitch_pair the same pixel rule. (b) on the card
-    alone: the port's CPU run of it takes minutes."""
+def phase_pano(app: dict, dev: str = "cuda") -> dict:
+    """[pano] (a) the port's panorama app (opencv_tpu_torch/examples/
+    panorama.py: 3 views of 160x200, F = 200, yaws -0.45/0/0.45, 700
+    features, seed 1, 2 bands): its card run `app` from [apps], and the app
+    run again on the CPU; (b) 5 views of 480x640 (F = 600, yaws -0.6..0.6,
+    2000 features), cold, then warm WARM_RUNS times; stitch_pair on views 2
+    and 3 of (b). Bounds: focal within 12 %, relative rotations < 3 deg,
+    (a)'s tree of 2 edges (tests/test_global_stitch.py:70-79). The CPU gets
+    the same RANSAC subsets (one CPU generator per call): on (a), focal
+    within 1e-3 relative, rotations within 0.05 deg, and (a)'s panorama
+    composed from the card's rotations on both devices with >= 99 % of its
+    pixels within 0.5 grey levels; stitch_pair the same pixel rule. (b) on
+    the card alone: the port's CPU run of it takes minutes."""
     import torch
 
+    from opencv_tpu_torch.examples import panorama
+    from opencv_tpu_torch.geometry.rotation import rodrigues
     from opencv_tpu_torch.stitching import global_stitch as gs
     from opencv_tpu_torch.stitching import stitcher
 
     def pixel_share(a, b, tol=0.5):
         return float((np.abs(a - b) <= tol).mean()) if a.shape == b.shape else 0.0
 
-    # (a): the example at its own size, on the card and on the CPU
-    va, Rs_a = pano_views(PANO_A, dev)
-    t0 = time.perf_counter()
-    Ra, fa, diag_a, pano_a = pano_run(va, PANO_A, dev)
-    a_s = time.perf_counter() - t0
-    ferr_a, rot_a = pano_geometry_errors(Ra, Rs_a, fa, PANO_A["F"])
-    with torch_threads(1):
-        Rc, fc, diag_c, _ = pano_run([v.cpu() for v in va], PANO_A, "cpu")
+    # (a): the app's card run, against the app on the CPU
+    va = panorama.render_views(dev)
+    Rs_a = np.stack([rodrigues(torch.tensor([0.0, yaw, 0.0])).double().numpy() for yaw in panorama.YAWS])
+    Ra, fa = np.asarray(app["rotations"]), app["focal"]
+    ferr_a, rot_a = pano_geometry_errors(Ra, Rs_a, fa, panorama.F)
+    with torch_threads(1), tempfile.TemporaryDirectory() as tmp:
+        cpu, _, _ = run_app("panorama", ["--cpu", "--out", os.path.join(tmp, "panorama.png")])
         comp_cpu = gs.compose_panorama([v.cpu() for v in va], Ra, fa, blend_bands=2).numpy()
     comp_card = gs.compose_panorama(va, Ra, fa, blend_bands=2).cpu().numpy()
-    a_cpu = dict(focal_rel=abs(fa - fc) / fc, rot_deg=max(_rot_deg(x, y) for x, y in zip(Ra, Rc)),
-                 tree_equal=diag_a["tree"] == diag_c["tree"],
+    a_cpu = dict(focal_rel=abs(fa - cpu["focal"]) / cpu["focal"],
+                 rot_deg=max(_rot_deg(x, y) for x, y in zip(Ra, np.asarray(cpu["rotations"]))),
+                 tree_equal=app["tree"] == cpu["tree"],
                  pixels_within_0_5=pixel_share(comp_card, comp_cpu))
-    print(f"[pano] (a) examples/panorama.py 3 views 160x200: focal {fa:.2f} (truth {PANO_A['F']}, "
-          f"{100 * ferr_a:.2f} %), relative rotations {[round(r, 4) for r in rot_a]} deg, "
-          f"{len(diag_a['edges'])} confident pairs, tree {diag_a['tree']}; panorama "
-          f"{pano_a.shape[1]}x{pano_a.shape[0]}, covered {(pano_a > 1.0).mean():.3f}; {a_s:.2f} s "
-          f"(cold); card vs CPU: focal {a_cpu['focal_rel']:.2e} relative, rotations "
+    print(f"[pano] (a) the panorama app's card run ([apps]), 3 views 160x200: focal {fa:.2f} (truth "
+          f"{panorama.F}, {100 * ferr_a:.2f} %), relative rotations {[round(r, 4) for r in rot_a]} deg, "
+          f"{app['pairs']} confident pairs, tree {app['tree']}; panorama {app['size'][0]}x{app['size'][1]}; "
+          f"card vs the app on the CPU: focal {a_cpu['focal_rel']:.2e} relative, rotations "
           f"{a_cpu['rot_deg']:.2e} deg, trees equal {a_cpu['tree_equal']}, composed pixels within "
           f"0.5: {a_cpu['pixels_within_0_5']:.5f}", flush=True)
-    if not (ferr_a < 0.12 and max(rot_a) < 3.0 and len(diag_a["tree"]) == 2):
-        fail(f"pano (a): focal error {ferr_a:.4f}, rotation errors {rot_a} deg, tree {diag_a['tree']}")
+    if not (ferr_a < 0.12 and max(rot_a) < 3.0 and len(app["tree"]) == 2):
+        fail(f"pano (a): focal error {ferr_a:.4f}, rotation errors {rot_a} deg, tree {app['tree']}")
     if not (a_cpu["focal_rel"] <= 1e-3 and a_cpu["rot_deg"] <= 0.05 and a_cpu["tree_equal"]
             and a_cpu["pixels_within_0_5"] >= 0.99):
         fail(f"pano (a): the card differs from the CPU: {a_cpu}")
@@ -2310,8 +2524,8 @@ def phase_pano(dev: str = "cuda") -> dict:
                pano_hw=list(pano_b.shape), covered=float((pano_b > 1.0).mean()),
                s_warm=warm, s_warm_runs=secs, cold_s=cold, pair_s=pair_s,
                pair_hw=list(pair.shape), pair_card_vs_cpu_within_0_5=pair_share,
-               example_a=dict(focal=fa, focal_rel_err=ferr_a, rel_rot_deg=rot_a, tree=diag_a["tree"],
-                              pano_hw=list(pano_a.shape), card_vs_cpu=a_cpu),
+               example_a=dict(focal=fa, focal_rel_err=ferr_a, rel_rot_deg=rot_a, tree=app["tree"],
+                              pano_wh=app["size"], card_vs_cpu=a_cpu),
                launches=runs[0])
     print(f"[pano] (b) 5 views 480x640: focal {fb:.2f} (truth {PANO_B['F']}, {100 * ferr_b:.2f} %), "
           f"relative rotations {[round(r, 4) for r in rot_b]} deg, pairs {diag_b['edges']}, tree "
@@ -2328,8 +2542,8 @@ def phase_pano(dev: str = "cuda") -> dict:
     if any(r["fast_corners"] <= 0 for r in runs):
         fail("kernel fast_corners was not launched by the panorama's ORB")
     # K1 at the panorama's own launches: every view's 4-level pyramid of (a) and (b)
-    k1_err = max(k1_exact_on_orb_pyramid(v, cfg["n_features"])
-                 for views, cfg in ((va, PANO_A), (vb, PANO_B)) for v in views)
+    k1_err = max(k1_exact_on_orb_pyramid(v, n) for views, n in
+                 ((va, panorama.N_FEATURES), (vb, PANO_B["n_features"])) for v in views)
     res["k1_pyramid_max_abs_err"] = k1_err
     print(f"[pano] K1 exact against its plain version on the 4-level pyramids of all "
           f"{len(va) + len(vb)} views (160x200 and 480x640): max_abs_err {k1_err}", flush=True)
@@ -2362,18 +2576,6 @@ def qr_scenes(n: int = 24, h: int = 480, w: int = 640, seed: int = 0):
     return np.stack(scenes), texts
 
 
-def qr_demo_scene():
-    """examples/qr_demo.py's scene: version 2, 5-px modules, 300x340."""
-    from opencv_tpu_torch.ops import qrcode
-
-    img = qrcode.render_qr(qrcode.encode_qr("opencv_tpu says hi", version=2), module_px=5)
-    rng = np.random.default_rng(0)
-    scene = np.full((300, 340), 190.0, np.float32)
-    scene[70:70 + img.shape[0], 90:90 + img.shape[1]] = img
-    scene += rng.normal(0, 6.0, scene.shape).astype(np.float32)
-    return scene
-
-
 def qr_read(scenes, dev: str):
     """detect_qr + decode_qr of every scene: [(quad, ok, text)]."""
     from opencv_tpu_torch.ops import qrcode
@@ -2385,21 +2587,21 @@ def qr_read(scenes, dev: str):
     return out
 
 
-def phase_qr(dev: str = "cuda") -> dict:
-    """[qr] (a) examples/qr_demo.py's round trip; (b) 24 scenes of 480x640
-    (qr_scenes), detect and decode, cold, then warm WARM_RUNS times. Every
-    code must decode to its text; the CPU's quads and texts equal the
-    card's on every scene."""
+def phase_qr(app: dict, dev: str = "cuda") -> dict:
+    """[qr] (a) the port's qr_demo app's card run `app` from [apps] (its
+    round trip: a version-2 code in a 300x340 scene), against the app run
+    again on the CPU; (b) 24 scenes of 480x640 (qr_scenes), detect and
+    decode, cold, then warm WARM_RUNS times. Every code must decode to its
+    text; the CPU's quads and texts equal the card's on every scene."""
     import torch
 
-    demo = torch.from_numpy(qr_demo_scene()).to(dev)
-    (quad, ok, text), = qr_read([demo], dev)
-    (cquad, cok, ctext), = qr_read([demo.cpu()], "cpu")
-    print(f"[qr] (a) examples/qr_demo.py: detected {ok}, decoded {text!r}; card vs CPU quad equal "
-          f"{np.array_equal(quad, cquad)}, text equal {text == ctext}", flush=True)
-    if text != "opencv_tpu says hi":
-        fail(f"qr (a): round trip failed ({text!r})")
-    if not (np.array_equal(quad, cquad) and ctext == text):
+    cpu, _, _ = run_app("qr_demo", ["--cpu"])
+    print(f"[qr] (a) the qr_demo app's card run ([apps]): detected {app['detected']}, decoded "
+          f"{app['text']!r}; card vs the app on the CPU: quad equal {app['quad'] == cpu['quad']}, text "
+          f"equal {app['text'] == cpu['text']}", flush=True)
+    if not app["ok"]:
+        fail(f"qr (a): round trip failed ({app['text']!r})")
+    if not (app["quad"] == cpu["quad"] and app["text"] == cpu["text"]):
         fail("qr (a): the CPU's quad or text differs from the card's")
 
     scenes_np, texts = qr_scenes()
@@ -2505,30 +2707,6 @@ def centre_error(track, centres) -> float:
                           for (b, _), c in zip(track, centres[1:])]))
 
 
-def seg_part_a(dev: str) -> dict:
-    """examples/segmentation_demo.py's three parts at its sizes and with its
-    one generator (seed 0): GrabCut 70x90 (4 iterations), watershed 70x90,
-    CamShift over 7 frames of 120x160."""
-    from opencv_tpu_torch.ops import grabcut, watershed
-
-    rng = np.random.default_rng(0)
-    img, blob, rect = grabcut_scene(70, 90, 1.0, rng)
-    gc = grabcut.grab_cut_stats(img, rect=rect, iter_count=4, device=dev)
-    fg = gc.mask.cpu().numpy() % 2 == 1
-    iou = float((fg & blob).sum() / max((fg | blob).sum(), 1))
-    surface, markers = watershed_scene(70, 90, 1.0)
-    ws = watershed.watershed_stats(surface, markers, device=dev)
-    lab = ws.labels.cpu().numpy()
-    sizes = {k: int((lab == k).sum()) for k in (1, 2)}
-    frames, centres, win = camshift_scene(7, 1, rng)
-    track = camshift_track(frames, win, dev)
-    err = centre_error(track, centres)
-    ok = iou > 0.8 and err < 6 and sizes[1] > 500 and sizes[2] > 500
-    return dict(img=img, rect=rect, mask=gc.mask.cpu().numpy(), iou=iou, sweeps=gc.sweeps,
-                surface=surface, markers=markers, labels=lab, sizes=sizes, ws_sweeps=ws.sweeps,
-                dams=int((lab == -1).sum()), frames=frames, win=win, track=track, err=err, ok=ok)
-
-
 def seg_run_b(scenes, dev: str) -> dict:
     """One 480x640 run of the three parts: GrabCut (4 iterations),
     watershed, CamShift over 30 frames; seconds per part."""
@@ -2553,38 +2731,36 @@ def seg_run_b(scenes, dev: str) -> dict:
     return out
 
 
-def phase_seg(dev: str = "cuda") -> dict:
-    """[seg] (a) examples/segmentation_demo.py at its sizes: its verdict
-    (IoU > 0.8, mean centre error < 6 px, basins > 500 px) must be OK;
-    the CPU's GrabCut mask >= 99.9 % equal, watershed labels and CamShift
-    windows equal. (b) the same scenes at 480x640 (GrabCut and watershed
-    scaled by 480/70, CamShift by 4 over 30 frames), cold, then warm
-    WARM_RUNS times, on the card; CamShift also on the CPU (windows
-    equal). GrabCut on the card against the CPU also at 120x160 (one
-    iteration): >= 99.9 % equal."""
+def phase_seg(app: dict, dev: str = "cuda") -> dict:
+    """[seg] (a) the port's segmentation_demo app's card run `app` from
+    [apps] (GrabCut 70x90 with 4 iterations, watershed 70x90, CamShift over
+    7 frames of 120x160): its verdict (IoU > 0.8, mean centre error < 6 px,
+    basins > 500 px) must be OK; the app run again on the CPU: GrabCut mask
+    >= 99.9 % equal, watershed labels and CamShift windows equal. (b) the
+    same scenes at 480x640 (GrabCut and watershed scaled by 480/70,
+    CamShift by 4 over 30 frames), cold, then warm WARM_RUNS times, on the
+    card; CamShift also on the CPU (windows equal). GrabCut on the card
+    against the CPU also at 120x160 (one iteration): >= 99.9 % equal."""
     import torch
 
     from opencv_tpu_torch.ops import grabcut
 
-    t0 = time.perf_counter()
-    a = seg_part_a(dev)
-    a_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     with torch_threads(1):
-        c = seg_part_a("cpu")
-    a_cpu_s = time.perf_counter() - t0
-    a_cmp = dict(grabcut_equal=float((a["mask"] == c["mask"]).mean()),
-                 watershed_equal=bool(np.array_equal(a["labels"], c["labels"])),
-                 camshift_windows_equal=[w for _, w in a["track"]] == [w for _, w in c["track"]])
-    print(f"[seg] (a) examples/segmentation_demo.py: grabcut IoU {a['iou']:.4f} (sweeps per cut "
-          f"{a['sweeps']}), watershed basins {a['sizes']} with {a['dams']} dam px in {a['ws_sweeps']} "
-          f"sweeps, camshift mean centre error {a['err']:.3f} px over 6 frames; verdict "
-          f"{'OK' if a['ok'] else 'DEGRADED'}; {a_s:.2f} s on the card, {a_cpu_s:.2f} s on the CPU; card "
-          f"vs CPU: grabcut mask equal on {a_cmp['grabcut_equal']:.5f}, watershed equal "
+        c, _, a_cpu_s = run_app("segmentation_demo", ["--cpu"])
+    a_cmp = dict(grabcut_equal=float((app["mask"] == c["mask"]).mean()),
+                 watershed_equal=bool(np.array_equal(app["labels"], c["labels"])),
+                 camshift_windows_equal=app["windows"] == c["windows"])
+    print(f"[seg] (a) the segmentation_demo app's card run ([apps]): grabcut IoU {app['grabcut_iou']:.4f} "
+          f"(sweeps per cut {app['grabcut_sweeps']}), watershed basins {app['basin_sizes']} with "
+          f"{app['dam_px']} dam px in {app['watershed_sweeps']} sweeps, camshift mean centre error "
+          f"{app['camshift_err_px']:.3f} px over {app['camshift_frames']} frames; verdict "
+          f"{'OK' if app['ok'] else 'DEGRADED'}; {a_cpu_s:.2f} s on the CPU; card vs the app on the CPU: "
+          f"grabcut mask equal on {a_cmp['grabcut_equal']:.5f}, watershed equal "
           f"{a_cmp['watershed_equal']}, camshift windows equal {a_cmp['camshift_windows_equal']}",
           flush=True)
-    if not a["ok"]:
-        fail(f"seg (a): the demo's verdict is DEGRADED (IoU {a['iou']}, error {a['err']}, basins {a['sizes']})")
+    if not app["ok"]:
+        fail(f"seg (a): the demo's verdict is DEGRADED (IoU {app['grabcut_iou']}, error "
+             f"{app['camshift_err_px']}, basins {app['basin_sizes']})")
     if not (a_cmp["grabcut_equal"] >= 0.999 and a_cmp["watershed_equal"]
             and a_cmp["camshift_windows_equal"]):
         fail(f"seg (a): the card differs from the CPU: {a_cmp}")
@@ -2622,9 +2798,10 @@ def phase_seg(dev: str = "cuda") -> dict:
                watershed_host_reads=b["watershed"].host_reads, basins=sizes_b,
                dams=int((lab_b == -1).sum()), camshift_err_px=err_b, camshift_card_equals_cpu=cam_equal,
                grabcut_120x160_card_vs_cpu_equal=small_equal, grabcut_120x160_sweeps=gc_card.sweeps,
-               example_a=dict(iou=a["iou"], sweeps=a["sweeps"], basins=a["sizes"],
-                              ws_sweeps=a["ws_sweeps"], camshift_err_px=a["err"], ok=a["ok"],
-                              card_vs_cpu=a_cmp, card_s=a_s, cpu_s=a_cpu_s),
+               example_a=dict(iou=app["grabcut_iou"], sweeps=app["grabcut_sweeps"],
+                              basins=app["basin_sizes"], ws_sweeps=app["watershed_sweeps"],
+                              camshift_err_px=app["camshift_err_px"], ok=app["ok"], card_vs_cpu=a_cmp,
+                              cpu_s=a_cpu_s),
                launches=runs[0])
     print(f"[seg] (b) 480x640: grabcut IoU {iou_b:.4f}, sweeps per cut {b['grabcut'].sweeps} (capped "
           f"{b['grabcut'].capped}); watershed basins {sizes_b}, {res['dams']} dam px, "
@@ -5382,20 +5559,22 @@ def main():
              "lane": timed("lane", phase_lane),
              "calibapp": timed("calibapp", phase_calibapp),
              "stab": timed("stab", phase_stab, frames[0]),
-             "pano": timed("pano", phase_pano),
-             "qr": timed("qr", phase_qr),
-             "seg": timed("seg", phase_seg),
-             "feat2": timed("feat2", phase_feat2, frames, K, card),
-             "stereo": timed("stereo", phase_stereo, card),
-             "flow": timed("flow", phase_flow, frames[0], card),
-             "bgfg": timed("bgfg", phase_bgfg, frames[0], card),
-             "photo": timed("photo", phase_photo, frames[0], card),
-             "imgops": timed("imgops", phase_imgops, frames[0], card),
-             "cascade": timed("cascade", phase_cascade, card),
-             "dnn": timed("dnn", phase_dnn, card),
-             "clip": timed("clip", phase_clip),
-             "ml": timed("ml", phase_ml, card),
-             "dist": timed("dist", phase_dist, card)}
+             "apps": timed("apps", phase_apps)}
+    app_runs = paths["apps"].pop("results")
+    paths.update({"pano": timed("pano", phase_pano, app_runs["panorama"]),
+                  "qr": timed("qr", phase_qr, app_runs["qr_demo"]),
+                  "seg": timed("seg", phase_seg, app_runs["segmentation_demo"]),
+                  "feat2": timed("feat2", phase_feat2, frames, K, card),
+                  "stereo": timed("stereo", phase_stereo, card),
+                  "flow": timed("flow", phase_flow, frames[0], card),
+                  "bgfg": timed("bgfg", phase_bgfg, frames[0], card),
+                  "photo": timed("photo", phase_photo, frames[0], card),
+                  "imgops": timed("imgops", phase_imgops, frames[0], card),
+                  "cascade": timed("cascade", phase_cascade, card),
+                  "dnn": timed("dnn", phase_dnn, card),
+                  "clip": timed("clip", phase_clip),
+                  "ml": timed("ml", phase_ml, card),
+                  "dist": timed("dist", phase_dist, card)})
     if args.measure:
         timed("profile orb", phase_profile, frames, K, "orb", 24, 2)
         timed("profile klt", phase_profile, frames, K, "klt", 24, 2)
@@ -5408,9 +5587,10 @@ def main():
         timed("profile haar and yolo", phase_profile_slice10)
         timed("profile dist ba", phase_profile_dist)
     print(f"[time] total: {time.perf_counter() - t_start:.1f} s of phases", flush=True)
-    k4 = paths["clip"].pop("k4_check")
-    rows["lk_sample"]["shapes"] += k4["shapes"]
-    rows["lk_sample"]["max_abs_err"] = max(rows["lk_sample"]["max_abs_err"], k4["max_abs_err"])
+    checks = dict(paths["apps"].pop("kernel_checks"), lk_sample=paths["clip"].pop("k4_check"))
+    for key, check in checks.items():
+        rows[key]["shapes"] += check["shapes"]
+        rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], check["max_abs_err"])
     kernels = []
     for key, row in rows.items():
         by_path = {p: res["launches"][key] for p, res in paths.items()}

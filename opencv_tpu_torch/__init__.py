@@ -16,3 +16,5 @@ Conventions:
 """
 
 __version__ = "0.1.0"
+
+from opencv_tpu_torch.core.types import KeyPoints, Matches  # noqa: F401

@@ -20,6 +20,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on `device` (a no-op on the CPU): a host
+    clock read after it times the work, not its dispatch."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 @contextlib.contextmanager
 def no_tf32():
     """True f32 matmuls and convolutions inside the block, whatever the

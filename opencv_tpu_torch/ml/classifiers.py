@@ -283,12 +283,14 @@ def svmsgd_indices(gen: torch.Generator | None, n: int, iters: int) -> torch.Ten
 def train_svmsgd(x: torch.Tensor, y: torch.Tensor, svmsgd_type: str = "asgd",
                  margin_type: str = "soft", margin_regularization: float = 1e-5,
                  initial_step_size: float = 0.05, step_decreasing_power: float = 0.75,
-                 iters: int = 100_000, gen: torch.Generator | None = None,
+                 iters: int = 100_000, seed: int = 0, gen: torch.Generator | None = None,
                  indices=None) -> SVMSGDModel:
     """cv::ml::SVMSGD analog (reference: ml/src/svmsgd.cpp:60), as the JAX
     package has it: samples centred, scaled by 1/mean(|x|) and extended
     by a homogeneous 1 (makeExtendedTrainSamples, :173); per step one
-    sample (its index from `indices`, e.g. JAX's, or drawn from `gen`),
+    sample (its index from `indices`, e.g. JAX's, or drawn from `gen`, by
+    default a CPU generator seeded with `seed`; the draws are the port's,
+    not JAX's),
     weight decay off the margin and a hinge step on it (updateWeights,
     :184), the step 1/(1 + lambda step0 t)^power (:289) and the ASGD
     running average (:295); SOFT_MARGIN's shift from the homogeneous
@@ -305,7 +307,8 @@ def train_svmsgd(x: torch.Tensor, y: torch.Tensor, svmsgd_type: str = "asgd",
     multiplier = 1.0 / (torch.abs(xc).mean() + 1e-12)
     ext = torch.cat([xc * multiplier, torch.ones((n, 1), device=dev)], dim=1)
     if indices is None:
-        indices = svmsgd_indices(gen, n, iters)
+        indices = svmsgd_indices(gen if gen is not None else torch.Generator().manual_seed(seed),
+                                 n, iters)
     idx = torch.as_tensor(indices, dtype=torch.int64).to(dev)
     lam = torch.tensor(margin_regularization, dtype=torch.float32)
     step0 = torch.tensor(initial_step_size, dtype=torch.float32)

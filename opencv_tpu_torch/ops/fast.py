@@ -13,6 +13,8 @@ import torch
 
 from opencv_tpu_torch.core.types import KeyPoints, masked_top_k
 from opencv_tpu_torch.ops.cuda import fast_kernel
+# the Bresenham rings and {ring size: (ring, default arc, radius)}, as the
+# JAX module exports them: the kernel module's own objects
 from opencv_tpu_torch.ops.cuda.fast_kernel import CIRCLE8, CIRCLE12, CIRCLE16, PATTERNS  # noqa: F401
 
 

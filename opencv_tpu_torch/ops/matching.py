@@ -17,13 +17,21 @@ import torch
 from opencv_tpu_torch.core.config import MatchConfig
 from opencv_tpu_torch.core.types import Matches
 from opencv_tpu_torch.ops.cuda import knn as knn_kernel
-from opencv_tpu_torch.ops.cuda.knn import desc_bits, signed_descriptors
+from opencv_tpu_torch.ops.cuda.knn import desc_bits
+
+DESC_BITS = 256  # ORB's width; the functions below take the width from the descriptors
 
 
 def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
     """int32 [N, W] packed descriptors -> bool [N, 32 W]."""
     shifts = torch.arange(32, device=desc.device, dtype=torch.int32)
     return (((desc[:, :, None] >> shifts) & 1) != 0).reshape(desc.shape[0], -1)
+
+
+def signed_descriptors(desc: torch.Tensor) -> torch.Tensor:
+    """int32 [N, W] packed descriptors -> +-1 bf16 [N, 32 W] (the JAX
+    package's matmul operand form; bit k of word i is column 32 i + k)."""
+    return knn_kernel.signed_descriptors(desc).to(torch.bfloat16)
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -39,7 +47,8 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
 def _hamming(query: torch.Tensor, train: torch.Tensor) -> torch.Tensor:
     """[Nq, Nt] f32 Hamming distances by the +-1 product."""
-    return (desc_bits(query) - signed_descriptors(query) @ signed_descriptors(train).T) * 0.5
+    signed = knn_kernel.signed_descriptors  # +-1 f32
+    return (desc_bits(query) - signed(query) @ signed(train).T) * 0.5
 
 
 def _distance(query, train, query_valid, train_valid):
@@ -112,13 +121,18 @@ def knn_match_auto(
     query: torch.Tensor, train: torch.Tensor,
     query_valid: torch.Tensor | None = None, train_valid: torch.Tensor | None = None,
     config: MatchConfig = MatchConfig(),
+    streaming_threshold: int = STREAMING_TRAIN_THRESHOLD,
+    force_streaming: bool | None = None,
 ) -> Matches:
-    """knn_match that dispatches large train sets to the streaming 2-NN
-    (ratio + max distance, no cross-check). The rule depends on the size
-    alone, on every device: a CPU tensor runs the kernel's plain version.
-    (The JAX package streams only on a TPU and runs the dense matcher on a
-    CPU; with cross_check=False both give the same matches.)"""
-    if train.shape[0] < STREAMING_TRAIN_THRESHOLD:
+    """knn_match that dispatches train sets of `streaming_threshold` rows
+    or more to the streaming 2-NN (ratio + max distance, no cross-check).
+    The rule depends on the size alone, on every device: a CPU tensor runs
+    the kernel's plain version. (The JAX package streams only on a TPU and
+    runs the dense matcher on a CPU; with cross_check=False both give the
+    same matches.) `force_streaming` True or False overrides the rule."""
+    use_streaming = (train.shape[0] >= streaming_threshold if force_streaming is None
+                     else force_streaming)
+    if not use_streaming:
         return knn_match(query, train, query_valid, train_valid, config)
     return knn_kernel.knn_match_streaming(
         query, train, query_valid, train_valid,

@@ -6,8 +6,10 @@ frame), then per level: border mask ->
 cull to 2x budget by FAST score -> Harris rescoring -> cull to budget ->
 quadratic sub-pixel refine -> intensity-centroid angle -> 7x7 Gaussian
 blur -> rotated BRIEF by an exact per-keypoint gather. The JAX package's
-"binned" matmul BRIEF is a TPU workaround for slow gathers and an
-approximation; the port always takes the exact gather.
+"binned" BRIEF (the angle quantised to ANGLE_BINS, the taps read from a
+bf16 patch) is its TPU branch: `brief_descriptors(method="binned")`
+computes it bit for bit, and "auto" takes the gather on every device
+(the JAX package's non-TPU branch), as `detect_and_compute` does.
 
 Descriptors are int32 [N, 8] tensors carrying the bit pattern of the JAX
 package's uint32 words.
@@ -32,6 +34,7 @@ HALF_PATCH = 15  # orientation patch radius
 PATTERN_BITS = 256
 PATTERN_RADIUS = 13
 PATCH_RADIUS = 20
+ANGLE_BINS = 32  # rotation bins of the "binned" BRIEF (11.25 deg)
 
 
 @functools.cache
@@ -46,6 +49,22 @@ def brief_pattern() -> np.ndarray:
     pts[same, 2] = np.clip(pts[same, 2] + 1, -PATTERN_RADIUS, PATTERN_RADIUS)
     pts[same, 3] = np.clip(pts[same, 3] - 1, -PATTERN_RADIUS, PATTERN_RADIUS)
     return pts
+
+
+def extract_patches(img: torch.Tensor, xy: torch.Tensor, radius: int) -> torch.Tensor:
+    """(2r+1)^2 patches of `img` [H, W] centred at the rounded keypoint
+    positions `xy` [N, 2] (x, y); centres clamped so that every window
+    lies inside (an image smaller than a patch is zero-padded at its
+    bottom and right first). [N, 2r+1, 2r+1]."""
+    size = 2 * radius + 1
+    h, w = img.shape
+    if h < size or w < size:
+        img = F.pad(img, (0, max(0, size - w), 0, max(0, size - h)))
+        h, w = img.shape
+    cx = torch.round(xy[:, 0]).long().clamp(radius, w - radius - 1)
+    cy = torch.round(xy[:, 1]).long().clamp(radius, h - radius - 1)
+    off = torch.arange(-radius, radius + 1, device=img.device)
+    return img[(cy[:, None] + off)[:, :, None], (cx[:, None] + off)[:, None, :]]
 
 
 def ic_angle_maps(img: torch.Tensor, radius: int = HALF_PATCH) -> torch.Tensor:
@@ -85,10 +104,51 @@ def ic_angles(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return amap[yi, xi]
 
 
-def brief_descriptors(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
-    """Rotated 256-bit BRIEF: each tap is rotated by the keypoint angle,
-    rounded to the nearest pixel of the blurred level, and pairs compared
-    (computeOrbDescriptors WTA_K=2). int32 [N, 8]."""
+@functools.cache
+def _binned_taps() -> np.ndarray:
+    """[ANGLE_BINS, 512] flat patch index of each tap (the 256 first taps,
+    then the 256 second) rotated by bin q's angle 2 pi q / ANGLE_BINS - pi:
+    the one column of each row of the JAX package's one-hot selection
+    matrix (`_binned_selection_matrix`), computed as it computes it."""
+    pat = brief_pattern()
+    px = np.concatenate([pat[:, 0], pat[:, 2]]).astype(np.float64)
+    py = np.concatenate([pat[:, 1], pat[:, 3]]).astype(np.float64)
+    size = 2 * PATCH_RADIUS + 1
+    taps = np.zeros((ANGLE_BINS, 2 * PATTERN_BITS), np.int64)
+    for q in range(ANGLE_BINS):
+        a = 2.0 * math.pi * q / ANGLE_BINS - math.pi
+        c, s = math.cos(a), math.sin(a)
+        rx = np.round(px * c - py * s).astype(np.int64) + PATCH_RADIUS
+        ry = np.round(px * s + py * c).astype(np.int64) + PATCH_RADIUS
+        taps[q] = ry * size + rx
+    return taps
+
+
+def brief_descriptors(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor,
+                      method: str = "auto") -> torch.Tensor:
+    """Rotated 256-bit BRIEF (computeOrbDescriptors WTA_K=2), int32 [N, 8].
+
+    method:
+      "gather" (and "auto", on every device): each tap is rotated by the
+               keypoint angle, rounded to the nearest pixel of the blurred
+               level, and pairs compared;
+      "binned": the JAX package's TPU descriptors: the angle rounded to one
+               of ANGLE_BINS bins, the taps of that bin's rotation read from
+               the keypoint's patch rounded to bf16. JAX selects them by a
+               one-hot bf16 matmul with f32 accumulation, whose every output
+               is one bf16 patch value; a gather of those values gives the
+               same bits."""
+    if method == "binned":
+        n = xy.shape[0]
+        taps = torch.as_tensor(_binned_taps(), device=blurred.device)
+        patches = extract_patches(blurred.to(torch.float32), xy, PATCH_RADIUS).reshape(n, -1)
+        patches = patches.to(torch.bfloat16).to(torch.float32)
+        qbin = torch.remainder(torch.round(
+            (angle.to(torch.float32) + math.pi) * (ANGLE_BINS / (2.0 * math.pi))).long(), ANGLE_BINS)
+        vals = torch.gather(patches, 1, taps[qbin])  # [N, 512]
+        return pack_bits(vals[:, :PATTERN_BITS] < vals[:, PATTERN_BITS:])
+    if method not in ("auto", "gather"):
+        raise ValueError(f"brief_descriptors: unknown method {method!r}")
     dev = blurred.device
     pat = torch.as_tensor(brief_pattern(), device=dev)
     px = torch.cat([pat[:, 0], pat[:, 2]]).to(torch.float32)

@@ -22,7 +22,6 @@ import torch
 
 from opencv_tpu_torch.device import no_tf32, on_device, true_div
 from opencv_tpu_torch.optim.minimize import solve_lp
-from opencv_tpu_torch.tbd.assignment import linear_assignment
 
 
 def _pairwise_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -86,6 +85,9 @@ def shape_context(pts, n_radial: int = 5, n_angular: int = 12, r_min: float = 0.
 def shape_context_distance(a, b, device=None) -> float:
     """Chi-squared shape-context cost with optimal assignment
     (ShapeContextDistanceExtractor analog; requires len(a) == len(b))."""
+    # imported here, as the JAX module does: tbd imports ops, which imports this module
+    from opencv_tpu_torch.tbd.assignment import linear_assignment
+
     ha = shape_context(a, device=device)
     hb = shape_context(b, device=ha.device)
     num = (ha[:, None, :] - hb[None, :, :]) ** 2

@@ -24,7 +24,8 @@ switches on, against the CPU; and every ml model
 fitted on the card against the CPU, with SVMSGD's CUDA-graph replays
 against its eager steps; and parallel/ at world 1 over NCCL (BA against
 the single-device solver, the map-sharded 2-NN through K3) and two gloo
-ranks sharing the card.
+ranks sharing the card; and ORB's BRIEF, gathered and binned, on the
+card against the CPU.
 
 This file imports neither jax nor the JAX package, so that it runs on a
 machine that has only PyTorch:
@@ -1665,3 +1666,26 @@ def test_map_sharded_knn_through_k3_equals_knn_match_auto(card, nccl_world1):
         for f in ("valid", "train_idx", "distance"):
             assert torch.equal(getattr(got, f), getattr(want, f)), (cc, f)
         assert int(got.valid.sum()) > 200
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["binned", "gather"])
+def test_brief_descriptors_on_the_card_equal_cpu(card, method):
+    """Both BRIEF methods give the CPU's bits on the card: the binned taps'
+    bf16 rounding and f32 bin arithmetic, the gather's rotations (the
+    angles at every bin centre and edge, and at +-pi)."""
+    from opencv_tpu_torch.core import imgproc
+    from opencv_tpu_torch.ops import orb
+
+    rng = np.random.default_rng(14)
+    img = imgproc.gaussian_blur(torch.from_numpy(_img(rng, 240, 320)), 7, 2.0)
+    n = 700
+    xy = torch.from_numpy(np.stack([rng.uniform(-3, 323, n), rng.uniform(-3, 243, n)], 1).astype(np.float32))
+    step = 2 * np.pi / orb.ANGLE_BINS
+    edges = np.concatenate([np.arange(64) * step / 2 - np.pi, [np.pi]]).astype(np.float32)
+    ang = np.resize(edges, n)
+    ang[len(edges):] = rng.uniform(-np.pi, np.pi, n - len(edges))
+    ang = torch.from_numpy(ang.astype(np.float32))
+    want = orb.brief_descriptors(img, xy, ang, method=method)
+    got = orb.brief_descriptors(img.to(card), xy.to(card), ang.to(card), method=method).cpu()
+    assert torch.equal(got, want)

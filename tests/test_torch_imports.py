@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no module of `opencv_tpu_torch/` and not
 `chip_smoke.py` imports jax or the JAX package, importing the port does
-no device work, and `chip_smoke.py` fails without a card or without the
-repository around it."""
+no device work, its applications parse no argument when imported and
+refuse to run without a card unless asked for the CPU, and
+`chip_smoke.py` fails without a card or without the repository around
+it."""
 
 import ast
 import os
@@ -17,6 +19,8 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "opencv_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "opencv_tpu")
+APPS = ("tbd_app", "lane_detection", "vo_synthetic", "calibration_app", "segmentation_demo",
+        "qr_demo", "panorama")  # the JAX package's examples/, ported
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -35,7 +39,8 @@ def test_every_slice_module_is_checked():
     calibration-app and video-stabilization slice's, the panorama, QR
     and segmentation slice's, the detectors, stereo and dense-flow
     slice's, the image-processing group's, the detection-and-inference
-    slice's and the io, ml and utils slice's modules are among them."""
+    slice's, the io, ml and utils slice's, the parallel slice's modules and
+    the applications are among them."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for mod in ("ops/lk.py", "ops/gftt.py", "ops/cuda/lk_sample.py", "core/pyramid.py",
                 "slam/vo.py", "geometry/five_point.py", "geometry/epnp.py", "geometry/ap3p.py",
@@ -60,7 +65,8 @@ def test_every_slice_module_is_checked():
                 "ml/trees.py", "utils/__init__.py", "utils/guard.py", "utils/logger.py",
                 "utils/persistence.py", "utils/profiler.py", "utils/synth.py", "utils/viz.py",
                 "parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py",
-                "parallel/dist_ba.py", "parallel/dist_match.py", "parallel/dryrun.py"):
+                "parallel/dist_ba.py", "parallel/dist_match.py", "parallel/dryrun.py",
+                "examples/__init__.py", *(f"examples/{app}.py" for app in APPS)):
         assert f"opencv_tpu_torch/{mod}" in names
 
 
@@ -325,6 +331,33 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def test_importing_the_apps_parses_no_argument_and_touches_no_device():
+    """An argument that every app's parser refuses is on the command line
+    while the apps are imported: none reads it, none touches a device."""
+    code = (
+        "import importlib, sys\n"
+        "sys.argv = [sys.argv[0], '--no-such-flag']\n"
+        f"for app in {APPS!r}: importlib.import_module('opencv_tpu_torch.examples.' + app)\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("app", APPS)
+def test_app_raises_without_a_card(monkeypatch, app):
+    """Without `--cpu` an app runs on the card, and without one it raises
+    before any work: no fallback to the CPU."""
+    import importlib
+
+    mod = importlib.import_module(f"opencv_tpu_torch.examples.{app}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
 
 
 def test_chip_smoke_fails_without_card_or_repository(tmp_path):
