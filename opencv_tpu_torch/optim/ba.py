@@ -10,6 +10,16 @@ All products run in f32 (the JAX package asks for HIGHEST precision;
 TF32 stays off: `device.no_tf32`). With a process group,
 `schur_cg_solve` all-reduces its two per-iteration products
 (parallel/dist_ba.py), as the JAX solver psums them.
+
+Spans and counters (utils/profiler.py, recorded while `OPENCV_TPU_TRACE`
+or `profiler.enable()` turns the recorder on): `ba.bundle_adjust` around
+a solve; `ba.step` around each LM step, inside it `ba.normal_eq` (the
+normal equations of either solver), `ba.schur` (the Schur solve) and
+`ba.update` (the candidate's cost, the accept test, the merge and the
+lambda update); `ba.cg.wtx` and `ba.cg.wz` around the CG's two
+per-observation products, without their all-reduce. Counters:
+`ba.lm_steps` (steps attempted) and `ba.lm_accepted` (the final
+`n_accepted` of each solve, read only when asked).
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import torch.distributed as dist
 
 from opencv_tpu_torch.device import no_tf32
 from opencv_tpu_torch.geometry.rotation import rodrigues, rodrigues_jacobian
+from opencv_tpu_torch.utils import profiler
 
 
 class BAProblem(NamedTuple):
@@ -182,13 +193,15 @@ def schur_cg_solve(eqs: NormalEqs, obs_cam, obs_pt, lam, fixed_cams, cg_iters: i
         return x
 
     def WT_x(x):
-        tx = torch.einsum("oij,oi->oj", A, x[obs_cam])
-        g = torch.zeros((P_pts, 3), dtype=torch.float32, device=dev).index_add_(0, obs_pt, tx)
+        with profiler.profile_region("ba.cg.wtx", dev):
+            tx = torch.einsum("oij,oi->oj", A, x[obs_cam])
+            g = torch.zeros((P_pts, 3), dtype=torch.float32, device=dev).index_add_(0, obs_pt, tx)
         return summed(g)
 
     def W_z(z):
-        wz = torch.einsum("oij,oj->oi", A, z[obs_pt])
-        h = torch.zeros((C, 6), dtype=torch.float32, device=dev).index_add_(0, obs_cam, wz)
+        with profiler.profile_region("ba.cg.wz", dev):
+            wz = torch.einsum("oij,oj->oi", A, z[obs_pt])
+            h = torch.zeros((C, 6), dtype=torch.float32, device=dev).index_add_(0, obs_cam, wz)
         return summed(h)
 
     def S_mv(x):
@@ -235,36 +248,46 @@ def ba_step(state: BAStepState, huber_delta: float | None = None, solver: str = 
             cg_iters: int = 60) -> BAStepState:
     """One damped LM step with accept/reject (levmarq.cpp:88-197)."""
     p = state.problem
+    dev = p.points.device
     solver = _resolve_solver(solver, p)
-    if solver == "cg":
-        eqs = normal_equations(p, huber_delta)
-        dc, dp = schur_cg_solve(eqs, p.obs_cam, p.obs_pt, state.lam, p.fixed_cams, cg_iters)
-    else:
-        U, V, W, bc, bp = schur_normal_equations(p, huber_delta)
-        dc, dp = schur_solve(U, V, W, bc, bp, state.lam, p.fixed_cams)
-    new_p = p._replace(
-        cam_rvec=p.cam_rvec + dc[:, :3], cam_tvec=p.cam_tvec + dc[:, 3:], points=p.points + dp
-    )
-    c_new = cost(new_p)
-    accept = (c_new < state.cost) & torch.isfinite(c_new)
-    merged = BAProblem(*[torch.where(accept, b, a) for a, b in zip(p, new_p)])
-    lam = torch.where(accept, state.lam / 3.0, state.lam * 4.0).clamp(1e-10, 1e10)
-    return BAStepState(
-        problem=merged, lam=lam, cost=torch.where(accept, c_new, state.cost),
-        n_accepted=state.n_accepted + accept.to(torch.int32),
-    )
+    profiler.count("ba.lm_steps")
+    with profiler.profile_region("ba.step", dev):
+        if solver == "cg":
+            with profiler.profile_region("ba.normal_eq", dev):
+                eqs = normal_equations(p, huber_delta)
+            with profiler.profile_region("ba.schur", dev):
+                dc, dp = schur_cg_solve(eqs, p.obs_cam, p.obs_pt, state.lam, p.fixed_cams, cg_iters)
+        else:
+            with profiler.profile_region("ba.normal_eq", dev):
+                U, V, W, bc, bp = schur_normal_equations(p, huber_delta)
+            with profiler.profile_region("ba.schur", dev):
+                dc, dp = schur_solve(U, V, W, bc, bp, state.lam, p.fixed_cams)
+        with profiler.profile_region("ba.update", dev):
+            new_p = p._replace(
+                cam_rvec=p.cam_rvec + dc[:, :3], cam_tvec=p.cam_tvec + dc[:, 3:], points=p.points + dp
+            )
+            c_new = cost(new_p)
+            accept = (c_new < state.cost) & torch.isfinite(c_new)
+            merged = BAProblem(*[torch.where(accept, b, a) for a, b in zip(p, new_p)])
+            lam = torch.where(accept, state.lam / 3.0, state.lam * 4.0).clamp(1e-10, 1e10)
+            return BAStepState(
+                problem=merged, lam=lam, cost=torch.where(accept, c_new, state.cost),
+                n_accepted=state.n_accepted + accept.to(torch.int32),
+            )
 
 
 def bundle_adjust(p: BAProblem, iters: int = 20, lambda0: float = 1e-4,
                   huber_delta: float | None = None, solver: str = "auto",
                   cg_iters: int = 60) -> tuple[BAProblem, torch.Tensor]:
     """Run `iters` LM steps. Returns (optimized problem, final cost)."""
-    with no_tf32():
-        dev = p.points.device
+    dev = p.points.device
+    with profiler.profile_region("ba.bundle_adjust", dev), no_tf32():
+        # filled on the device: a host tensor copied in would synchronize
         state = BAStepState(
-            problem=p, lam=torch.tensor(lambda0, dtype=torch.float32, device=dev),
-            cost=cost(p), n_accepted=torch.tensor(0, dtype=torch.int32, device=dev),
+            problem=p, lam=torch.full((), lambda0, dtype=torch.float32, device=dev),
+            cost=cost(p), n_accepted=torch.zeros((), dtype=torch.int32, device=dev),
         )
         for _ in range(iters):
             state = ba_step(state, huber_delta, solver=solver, cg_iters=cg_iters)
+    profiler.keep("ba.lm_accepted", state.n_accepted)
     return state.problem, state.cost

@@ -1689,3 +1689,99 @@ def test_brief_descriptors_on_the_card_equal_cpu(card, method):
     want = orb.brief_descriptors(img, xy, ang, method=method)
     got = orb.brief_descriptors(img.to(card), xy.to(card), ang.to(card), method=method).cpu()
     assert torch.equal(got, want)
+
+
+SPANS_SCENE = dict(n_cams=1100, n_pts=275_000, views=8)  # 2 200 000 observations, as KITTI 07's map
+SYNCS = {"cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize"}
+
+
+def _traced_solve(solve, logdir):
+    """The events of a torch.profiler trace of `solve()` (then a
+    synchronize) through the recorder's own start/stop_device_trace."""
+    import json
+
+    from opencv_tpu_torch.utils import profiler
+
+    profiler.start_device_trace(str(logdir))
+    torch.ones(1, device="cuda").sum()  # a second profile in a process can miss its first kernels
+    torch.cuda.synchronize()
+    solve()
+    torch.cuda.synchronize()
+    with open(profiler.stop_device_trace()) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def _card_median_ms(fn, reps=5):
+    """Device ms of one call of `fn`, median of `reps` CUDA-event spans
+    after one call untimed."""
+    fn()
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in marks:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in marks]))
+
+
+@pytest.mark.cuda
+def test_ba_spans_on_the_card(card, tmp_path):
+    """The recorder's spans of the CG solve on the card: each root's device
+    time covered by its LM steps and each step's by its three parts (98 %),
+    the normal equations' and the Schur solve's span time a step within
+    5 % of CUDA-event replicas at the start, no synchronization or copy to
+    the host inside a solve with the recorder on, and the same kernels with
+    the recorder on and off."""
+    import chip_smoke
+
+    from opencv_tpu_torch import convert
+    from opencv_tpu_torch.optim import ba
+    from opencv_tpu_torch.utils import profiler
+
+    p = convert.ba_problem(chip_smoke.ba_scene(**SPANS_SCENE), device=card)
+    iters, cg_iters = 10, 60
+    ba.bundle_adjust(p, iters=iters, solver="cg", cg_iters=cg_iters)
+    torch.cuda.synchronize()
+    profiler.reset()
+    profiler.enable(True)
+    try:
+        ba.bundle_adjust(p, iters=iters, solver="cg", cg_iters=cg_iters)
+        torch.cuda.synchronize()
+        spans, counters = profiler.spans(), profiler.counters()
+        profiler.reset()
+        on = _traced_solve(lambda: ba.bundle_adjust(p, iters=2, solver="cg", cg_iters=cg_iters), tmp_path / "on")
+    finally:
+        profiler.enable(False)
+        profiler.reset()
+    off = _traced_solve(lambda: ba.bundle_adjust(p, iters=2, solver="cg", cg_iters=cg_iters), tmp_path / "off")
+
+    assert counters["ba.lm_steps"] == iters and 0 < counters["ba.lm_accepted"] <= iters
+    children: dict = {}
+    for s in spans:
+        children.setdefault(s["parent"], []).append(s)
+    for s in spans:
+        if s["name"] in ("ba.bundle_adjust", "ba.step"):
+            covered = sum(c["device_ms"] for c in children[s["id"]])
+            assert 0.98 * s["device_ms"] <= covered <= 1.001 * s["device_ms"], s
+    lam = torch.tensor(1e-4, dtype=torch.float32, device=card)
+    eqs = ba.normal_equations(p)
+    replica = {"ba.normal_eq": _card_median_ms(lambda: ba.normal_equations(p)),
+               "ba.schur": _card_median_ms(lambda: ba.schur_cg_solve(eqs, p.obs_cam, p.obs_pt, lam, p.fixed_cams,
+                                                                  cg_iters))}
+    for name, ms in replica.items():
+        per_step = sum(s["device_ms"] for s in spans if s["name"] == name) / iters
+        assert abs(per_step - ms) <= 0.05 * ms, (name, per_step, ms)
+
+    def root(events):
+        (span,) = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e["name"] == "ba.bundle_adjust" and e.get("cat") == "user_annotation"]
+        return span
+
+    t0, t1 = root(on)
+    inside = [e for e in on if e.get("cat") in ("cuda_runtime", "cuda_driver") and t0 <= e["ts"] < t1]
+    assert not [e["name"] for e in inside if e["name"] in SYNCS]
+    corr = {e.get("args", {}).get("correlation") for e in inside}
+    assert not [e for e in on if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]
+                and e.get("args", {}).get("correlation") in corr]
+    kernels = [sum(1 for e in ev if e.get("cat") == "kernel" and e["ts"] >= root(ev)[0]) for ev in (on, off)]
+    assert kernels[0] == kernels[1] > 0
