@@ -25,7 +25,11 @@ Phases:
      library call where one computes the same function; for K3 a bf16
      matmul and an int8 torch._int_mm, each with topk) beside the bound
      (K3's: the int8 tensor-core operations of its +-1 product), and the
-     first designs' times as labelled constants (FIRST_DESIGN_MS);
+     first designs' times as labelled constants (FIRST_DESIGN_MS); K6,
+     the Schur-CG point pass, at the start problems of the benchmark's two
+     cells on the CG's own inputs, every product and the group's halves
+     within K6_RTOL of the plain version (k6_cell), timed beside the plain
+     S p, the einsums alone and its byte bound;
   4. the twenty-seven paths, each cold, then warm WARM_RUNS times (once;
      twice with --measure, and then "the median" is of two), with the
      launch counts reset just before each warm run and read just after it:
@@ -250,6 +254,17 @@ CLIP_SHA256 = "91a889b955006465fafa0f4c1d981b35fbca642ea72cdca41652e3698d89486f"
 # K4's point counts: the LK path's 2000 and 512, DetectionBasedTracker's 32,
 # videostab's 200 (GFTT's max_corners)
 K4_N = (2000, 512, 32, 200)
+
+# K6 at the start problems of the benchmark's cells (BENCHMARK.json's
+# configurations and traffic, portbench/generate.py at this seed), and
+# its tolerance against the plain version: each product's entries within
+# K6_RTOL of its largest (f32 sums in another order; a missed or doubled
+# observation moves an entry by ~1e-2 of it)
+K6_CELLS = {"ba.kitti07.cg": ("kitti07-orbslam2", "seq-07.global-ba"),
+            "ba.kitti00.cg": ("kitti00-orbslam2", "seq-00.global-ba")}
+K6_SEED = 2147483649
+K6_RTOL = 1e-4
+K6_LAUNCH_KEYS = ("schur_cg_full", "schur_cg_hz", "schur_cg_back", "schur_cg_g", "schur_cg_update")
 
 
 def fail(msg: str) -> None:
@@ -540,7 +555,140 @@ def phase_kernels(frame0: np.ndarray, rates: dict) -> dict:
           f"int8 _int_mm+topk {lib8_ms:.4f} ms", flush=True)
     phase_kernels_slice8(lvl0, rates, rows)
     rows.update(phase_lk_kernels(lvl0, rates))
+    rows["schur_cg"] = phase_k6_kernel()
     return rows
+
+
+def k6_bound_bytes(n_obs: int, n_pts: int, n_cams: int) -> int:
+    """The bytes a Schur-CG product must move: A (72 B) and its camera
+    (4 B) an observation, the point offsets (4 B) and V^-1 (36 B) a
+    point, x and h (24 B each) a camera."""
+    return n_obs * 76 + n_pts * 40 + n_cams * 48
+
+
+def k6_cell(cell: str) -> dict:
+    """K6 at `cell`'s start problem (K6_SEED), on the CG's own inputs: the
+    right-hand side, the first search direction p0 (S p0) and the dc of a
+    whole `schur_cg_solve` (the back-substitution). Every product, S p and
+    the back-substitution also by the halves a process group runs (the
+    fused pass's bits: the world-1 sharded solver relies on it), against
+    the plain version in float64 within K6_RTOL; then device times (the
+    plain S p in float32, as the solver ran it before K6)."""
+    import torch
+
+    from opencv_tpu_torch.device import no_tf32
+    from opencv_tpu_torch.ops.cuda import schur_cg
+    from opencv_tpu_torch.optim import ba
+    from portbench.generate import make_problem
+
+    dev = torch.device("cuda")
+    cfg_name, traffic_name = K6_CELLS[cell]
+    with open(os.path.join(REPO, "portbench", "configs", f"{cfg_name}.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(REPO, "portbench", "traffic", f"{traffic_name}.json")) as f:
+        traffic = json.load(f)
+    p = ba.BAProblem(**make_problem(config, traffic, K6_SEED, dev))
+    C, P, O = p.cam_rvec.shape[0], p.points.shape[0], p.obs_cam.shape[0]
+    lam = torch.tensor(traffic["lambda0"], dtype=torch.float32, device=dev)
+    with no_tf32():
+        eqs = ba.normal_equations(p)
+        Ud = eqs.U + lam * torch.eye(6, device=dev)[None]
+        Vinv = torch.linalg.inv_ex(eqs.V + lam * torch.eye(3, device=dev)[None])[0]
+        Minv = torch.linalg.inv_ex(Ud)[0]
+        mask = torch.where(p.fixed_cams, 0.0, 1.0)[:, None]
+        A, cam, pt = eqs.A, p.obs_cam, p.obs_pt
+
+        def layout():
+            return schur_cg.SchurProducts(A, cam, pt, Vinv, mask, C, P)
+
+        k = layout()
+        h_bp = k.w_vinv(eqs.bp)
+        rhs = k.finish(h_bp, base=eqs.bc)
+        x = k.cg_start(rhs, Minv).p.clone()
+        dc, _ = ba.schur_cg_solve(eqs, cam, pt, lam, p.fixed_cams, traffic["cg_iters"])
+        g = k.wt_x(x)
+        got = {"smv": k.smv(x, Ud), "smv_halves": k.finish(k.w_vinv(g), ud=Ud, x=x), "rhs": rhs,
+               "back": k.back(dc, eqs.bp), "back_halves": k.apply_vinv(eqs.bp - k.wt_x(dc)),
+               "wt_x": g, "w_vinv": h_bp}
+
+        def plain(dt):
+            """Every product by the plain version, in dtype dt."""
+            A_, Vinv_, Ud_, mask_, x_, dc_, bp, bc = (t.to(dt) for t in (A, Vinv, Ud, mask, x, dc, eqs.bp, eqs.bc))
+
+            def w_vinv(gv):
+                return schur_cg.w_z_plain(A_, cam, pt, torch.einsum("pij,pj->pi", Vinv_, gv), C)
+
+            xm = x_ * mask_
+            g_ = schur_cg.wt_x_plain(A_, cam, pt, xm, P)
+            out = {"smv": (torch.einsum("cij,cj->ci", Ud_, xm) - w_vinv(g_)) * mask_,
+                   "rhs": (bc - w_vinv(bp)) * mask_,
+                   "back": torch.einsum("pij,pj->pi", Vinv_, bp - schur_cg.wt_x_plain(A_, cam, pt, dc_ * mask_, P)),
+                   "wt_x": g_, "w_vinv": w_vinv(bp)}
+            out["smv_halves"], out["back_halves"] = out["smv"], out["back"]
+            return out
+
+        # against the plain version in float64: the kernel's own rounding, not the plain f32's too
+        want = plain(torch.float64)
+        torch.cuda.synchronize()
+        rel = {n: float((got[n].double() - w).abs().max() / w.abs().max()) for n, w in want.items()}
+        abs_err = max_abs_err(*((got[n], w) for n, w in want.items()))
+        halves_equal = {n: bool(torch.equal(got[f"{n}_halves"], got[n])) for n in ("smv", "back")}
+        del want
+        xm = x * mask
+        z = torch.einsum("pij,pj->pi", Vinv, schur_cg.wt_x_plain(A, cam, pt, xm, P))
+
+        def plain_smv():
+            g_ = schur_cg.wt_x_plain(A, cam, pt, xm, P)
+            h_ = schur_cg.w_z_plain(A, cam, pt, torch.einsum("pij,pj->pi", Vinv, g_), C)
+            return (torch.einsum("cij,cj->ci", Ud, xm) - h_) * mask
+
+        hbuf = k.h_buffer()
+        ms = {"pass": device_time_ms(lambda: k.launch("full", x=x, mask=k.mask_c, hout=hbuf)),
+              "smv": device_time_ms(lambda: k.smv(x, Ud)),
+              "rhs": device_time_ms(lambda: k.finish(k.w_vinv(eqs.bp), base=eqs.bc)),
+              "back": device_time_ms(lambda: k.back(dc, eqs.bp)),
+              "plain_smv": device_time_ms(plain_smv, calls=3),
+              "library": device_time_ms(lambda: (torch.einsum("oij,oi->oj", A, xm[cam]),
+                                                 torch.einsum("oij,oj->oi", A, z[pt])), calls=3),
+              "layout": device_time_ms(layout, calls=3)}
+    bound_ms = 1e3 * k6_bound_bytes(O, P, C) / HBM_BYTES_PER_S
+    out = dict(cameras=C, points=P, observations=O, accumulator=k.acc, stages=k.stages, blocks=k.blocks,
+               rel_err=rel, max_abs_err=abs_err, halves_bits_equal=halves_equal, ms=ms, bound_ms=bound_ms,
+               pass_of_bound_pct=100 * bound_ms / ms["pass"])
+    print(f"[K6] {cell}: {C} cameras, {P} points, {O} observations, accumulator {k.acc} ({k.stages} stages, "
+          f"{k.blocks} blocks); largest error of each product against the plain version, over its largest "
+          f"entry: " + ", ".join(f"{n} {e:.2e}" for n, e in rel.items()) + f" (bound {K6_RTOL:g}); the "
+          f"halves give the fused pass's bits: {halves_equal}; FULL pass {ms['pass']:.4f} ms = "
+          f"{out['pass_of_bound_pct']:.1f} % of its bound {bound_ms:.5f} ms (bytes), S p with the reduce "
+          f"{ms['smv']:.4f} ms, right-hand side {ms['rhs']:.4f} ms, back-substitution {ms['back']:.4f} ms, "
+          f"layout {ms['layout']:.4f} ms; plain S p {ms['plain_smv']:.4f} ms, the two einsums alone (cuBLAS's "
+          f"batched gemv) {ms['library']:.4f} ms", flush=True)
+    bad = [n for n, e in rel.items() if not e <= K6_RTOL] + [f"{n} by the halves" for n, eq in halves_equal.items()
+                                                            if not eq and k.acc != "global"]
+    if bad:
+        fail(f"K6 at {cell}: {bad} (errors {rel}, halves equal {halves_equal})")
+    return out
+
+
+def phase_k6_kernel() -> dict:
+    """K6's row: k6_cell at both cells; the row's times are kitti07's."""
+    import torch
+
+    cells = {}
+    for cell in K6_CELLS:
+        cells[cell] = k6_cell(cell)
+        torch.cuda.empty_cache()
+    first = cells["ba.kitti07.cg"]
+    return dict(
+        name="schur_cg (K6: the Schur-CG point pass, S p in one read of A (FULL mode); camera reduce; "
+             "one-block CG update)",
+        route="cuda", source="opencv_tpu_torch/csrc/schur_cg.cu",
+        replaces="none: no Pallas kernel (the JAX package's XLA gathers and segment-sums in "
+                 "opencv_tpu/optim/ba.py schur_cg_solve)",
+        max_abs_err=max(c["max_abs_err"] for c in cells.values()), ms=first["ms"]["pass"],
+        plain_ms=first["ms"]["plain_smv"], library_ms=first["ms"]["library"], bound_ms=first["bound_ms"],
+        bound_by="bytes", shapes=[(c["observations"], 6, 3) for c in cells.values()], cells=cells,
+        launch_keys=K6_LAUNCH_KEYS)
 
 
 def phase_kernels_slice8(lvl0, rates: dict, rows: dict) -> None:
@@ -2339,7 +2487,8 @@ def phase_apps(dev: str = "cuda") -> dict:
                 print(f"[apps] {key}: {'ok' if res['ok'] else 'NOT ok'}, {secs:.2f} s wall; "
                       + "; ".join(f"{lab} {g} (JAX {w}; {bound}{'' if ok else ': FAILED'})"
                                   for lab, g, w, bound, ok in checks)
-                      + f"; K1 {counts['fast_corners']}, K3 {counts['knn2_hamming']} launches", flush=True)
+                      + f"; K1 {counts['fast_corners']}, K3 {counts['knn2_hamming']}, K6 "
+                      f"{sum(v for k, v in counts.items() if k.startswith('schur_cg'))} launches", flush=True)
                 if not (res["ok"] and all(c[-1] for c in checks)):
                     fail(f"[apps] {key}: ok={res['ok']}, checks {checks}")
         finally:
@@ -5593,7 +5742,8 @@ def main():
         rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], check["max_abs_err"])
     kernels = []
     for key, row in rows.items():
-        by_path = {p: res["launches"][key] for p, res in paths.items()}
+        keys = row.pop("launch_keys", (key,))
+        by_path = {p: sum(res["launches"][k] for k in keys) for p, res in paths.items()}
         kernels.append(dict(row, launches=sum(by_path.values()), launches_by_path=by_path,
                             launches_per_unit={p: by_path[p] / paths[p]["units"] for p in paths},
                             on_main_path=key != "lk_sample_clamp"))

@@ -8,6 +8,7 @@ calls are not counted), so a run can show that it went through them.
 
 launch_counts: dict[str, int] = {
     "fast_corners": 0, "fast_score": 0, "knn2_hamming": 0, "lk_sample": 0, "lk_sample_clamp": 0,
+    "schur_cg_full": 0, "schur_cg_hz": 0, "schur_cg_back": 0, "schur_cg_g": 0, "schur_cg_update": 0,
 }
 
 

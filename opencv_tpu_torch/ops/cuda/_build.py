@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-KERNEL_SOURCES = ("fast", "knn2_hamming", "lk_sample")
+KERNEL_SOURCES = ("fast", "knn2_hamming", "lk_sample", "schur_cg")
 HOST_SOURCES = ("munkres",)
 
 _lock = threading.Lock()

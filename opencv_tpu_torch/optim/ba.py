@@ -11,19 +11,35 @@ TF32 stays off: `device.no_tf32`). With a process group,
 `schur_cg_solve` all-reduces its two per-iteration products
 (parallel/dist_ba.py), as the JAX solver psums them.
 
+The CG's products over A go through ops/cuda/schur_cg.py. On the card a
+point-major layout is built once a solve (a stable sort by point, no
+host synchronization) and each product is one pass of the hand-written
+kernel csrc/schur_cg.cu over A. A CG iteration is S p (one fused pass of
+W^T x, V^-1 and W z; with a group its two halves, an all-reduce after
+each), one camera reduce that finishes it, and the CG's vector work in
+one one-block launch; under deterministic algorithms every sum takes a
+fixed order. CPU tensors take the plain version (einsum and index_add_)
+with the CG's vector work in PyTorch.
+
 Spans and counters (utils/profiler.py, recorded while `OPENCV_TPU_TRACE`
 or `profiler.enable()` turns the recorder on): `ba.bundle_adjust` around
 a solve; `ba.step` around each LM step, inside it `ba.normal_eq` (the
 normal equations of either solver), `ba.schur` (the Schur solve) and
 `ba.update` (the candidate's cost, the accept test, the merge and the
-lambda update); `ba.cg.wtx` and `ba.cg.wz` around the CG's two
-per-observation products, without their all-reduce. Counters:
-`ba.lm_steps` (steps attempted) and `ba.lm_accepted` (the final
-`n_accepted` of each solve, read only when asked).
+lambda update). Inside `ba.schur` of the CG solver: `ba.cg.wz` around
+the right-hand side's W V^-1 bp, `ba.cg.wtx` around the
+back-substitution's W^T dc, and `ba.cg.smv` around each CG iteration's
+S p; with a group, `ba.cg.wtx` and `ba.cg.wz` around S p's two halves
+in its place. No span holds an all-reduce. Counters: `ba.lm_steps` (steps
+attempted), `ba.lm_accepted` (the final `n_accepted` of each solve, read
+only when asked), and on the card `ba.cg.pass.smem`, `ba.cg.pass.global`
+or `ba.cg.pass.ordered`, one per kernel pass, by where the pass kept the
+camera sums (ops/cuda/schur_cg.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -31,6 +47,7 @@ import torch.distributed as dist
 
 from opencv_tpu_torch.device import no_tf32
 from opencv_tpu_torch.geometry.rotation import rodrigues, rodrigues_jacobian
+from opencv_tpu_torch.ops.cuda import schur_cg
 from opencv_tpu_torch.utils import profiler
 
 
@@ -170,11 +187,15 @@ def schur_cg_solve(eqs: NormalEqs, obs_cam, obs_pt, lam, fixed_cams, cg_iters: i
     """Matrix-free block-Jacobi-preconditioned CG on the Schur complement;
     W is applied per observation through A, never materialized.
 
+    On the card the products are K6's point-major passes over A
+    (ops/cuda/schur_cg.py, `_cg_on_card`); on the CPU the plain einsum and
+    index_add_ version with the CG's vector work in PyTorch.
+
     With a process `group` (the JAX package's `psum_axis`), A, obs_cam and
     obs_pt are this rank's block of observations, and the [P,3] result of
     W^T x and the [C,6] result of W z are all-reduced over the group: the
     whole of the solver's collective traffic. Everything else runs on
-    vectors every rank holds alike."""
+    vectors every rank holds alike, and S p runs as its two halves."""
     C = eqs.U.shape[0]
     P_pts = eqs.V.shape[0]
     A = eqs.A
@@ -192,27 +213,34 @@ def schur_cg_solve(eqs: NormalEqs, obs_cam, obs_pt, lam, fixed_cams, cg_iters: i
             dist.all_reduce(x, group=group)
         return x
 
-    def WT_x(x):
-        with profiler.profile_region("ba.cg.wtx", dev):
-            tx = torch.einsum("oij,oi->oj", A, x[obs_cam])
-            g = torch.zeros((P_pts, 3), dtype=torch.float32, device=dev).index_add_(0, obs_pt, tx)
+    def span(name):
+        return profiler.profile_region(name, dev)
+
+    if dev.type == "cuda":
+        k = schur_cg.SchurProducts(A, obs_cam, obs_pt, Vinv, mask, C, P_pts)
+        return _cg_on_card(k, eqs, Ud, Minv, mask, cg_iters, group is not None, summed, span)
+
+    def WT_x(x, spanned=True):
+        with span("ba.cg.wtx") if spanned else contextlib.nullcontext():
+            g = schur_cg.wt_x_plain(A, obs_cam, obs_pt, x, P_pts)
         return summed(g)
 
-    def W_z(z):
-        with profiler.profile_region("ba.cg.wz", dev):
-            wz = torch.einsum("oij,oj->oi", A, z[obs_pt])
-            h = torch.zeros((C, 6), dtype=torch.float32, device=dev).index_add_(0, obs_cam, wz)
+    def W_vinv(g, spanned=True):
+        with span("ba.cg.wz") if spanned else contextlib.nullcontext():
+            h = schur_cg.w_z_plain(A, obs_cam, obs_pt, torch.einsum("pij,pj->pi", Vinv, g), C)
         return summed(h)
 
     def S_mv(x):
         x = x * mask
-        z = torch.einsum("pij,pj->pi", Vinv, WT_x(x))
-        return (torch.einsum("cij,cj->ci", Ud, x) - W_z(z)) * mask
+        if group is not None:
+            return (torch.einsum("cij,cj->ci", Ud, x) - W_vinv(WT_x(x))) * mask
+        with span("ba.cg.smv"):
+            return (torch.einsum("cij,cj->ci", Ud, x) - W_vinv(WT_x(x, False), False)) * mask
 
     def precond(r):
         return torch.einsum("cij,cj->ci", Minv, r) * mask
 
-    rhs = (eqs.bc - W_z(torch.einsum("pij,pj->pi", Vinv, eqs.bp))) * mask
+    rhs = (eqs.bc - W_vinv(eqs.bp)) * mask
     x = torch.zeros_like(rhs)
     r = rhs
     z = precond(r)
@@ -232,6 +260,37 @@ def schur_cg_solve(eqs: NormalEqs, obs_cam, obs_pt, lam, fixed_cams, cg_iters: i
     dc = x * mask
     dp = torch.einsum("pij,pj->pi", Vinv, eqs.bp - WT_x(dc))
     return dc, dp
+
+
+def _cg_on_card(k: schur_cg.SchurProducts, eqs: NormalEqs, Ud, Minv, mask, cg_iters: int, grouped: bool,
+                summed, span):
+    """schur_cg_solve's CG through K6. A CG iteration is S p, one camera
+    reduce that finishes it, and one launch of the CG's vector work. S p
+    is one fused pass on one card; with a group its two halves, each
+    all-reduced outside the spans, which gives the fused pass's bits at
+    world 1 (ops/cuda/schur_cg.py)."""
+    with span("ba.cg.wz"):
+        h = k.w_vinv(eqs.bp)
+    cg = k.cg_start(k.finish(summed(h), base=eqs.bc), Minv)
+    for _ in range(cg_iters):
+        if grouped:
+            with span("ba.cg.wtx"):
+                g = k.wt_x(cg.p)
+            summed(g)
+            with span("ba.cg.wz"):
+                h = k.w_vinv(g)
+            k.finish(summed(h), ud=Ud, cg=cg)
+        else:
+            with span("ba.cg.smv"):
+                k.smv(cg.p, Ud, cg)
+        k.cg_step(cg)
+    dc = cg.x * mask
+    if not grouped:
+        with span("ba.cg.wtx"):
+            return dc, k.back(dc, eqs.bp)
+    with span("ba.cg.wtx"):
+        g = k.wt_x(dc)
+    return dc, k.apply_vinv(eqs.bp - summed(g))
 
 
 def _resolve_solver(solver: str, p: BAProblem) -> str:

@@ -24,8 +24,11 @@ switches on, against the CPU; and every ml model
 fitted on the card against the CPU, with SVMSGD's CUDA-graph replays
 against its eager steps; and parallel/ at world 1 over NCCL (BA against
 the single-device solver, the map-sharded 2-NN through K3) and two gloo
-ranks sharing the card; and ORB's BRIEF, gathered and binned, on the
-card against the CPU.
+ranks sharing the card; ORB's BRIEF, gathered and binned, on the card
+against the CPU; and K6 (csrc/schur_cg.cu: the Schur-CG point pass, its
+camera reduce and its CG update) against its plain version at the
+benchmark cells' widths and on shuffled, ragged and large maps, its
+fixed summation orders run to run, and its launches in a CG solve.
 
 This file imports neither jax nor the JAX package, so that it runs on a
 machine that has only PyTorch:
@@ -347,9 +350,13 @@ def test_wrappers_count_launches(card):
     lk_sample.sample_templates(x, x, x, pts, 21)
     lk_sample.sample_single(x, pts, 48)
     lk_sample.sample_windows(x, pts, 21)
+    t, C, P = _schur_inputs(card, n_cams=7, n_pts=40, n_obs=150)
+    _schur_kernel(t, C, P)
     torch.cuda.synchronize()
     assert cuda_ops.launch_counts == {"fast_corners": 2, "fast_score": 1, "knn2_hamming": 1,
-                                      "lk_sample": 2, "lk_sample_clamp": 1}
+                                      "lk_sample": 2, "lk_sample_clamp": 1, "schur_cg_full": 1,
+                                      "schur_cg_hz": 2, "schur_cg_back": 2, "schur_cg_g": 1,
+                                      "schur_cg_update": 0}
 
 
 # ------------------------------------------------ geometry, calibration, LSH
@@ -1785,3 +1792,191 @@ def test_ba_spans_on_the_card(card, tmp_path):
                 and e.get("args", {}).get("correlation") in corr]
     kernels = [sum(1 for e in ev if e.get("cat") == "kernel" and e["ts"] >= root(ev)[0]) for ev in (on, off)]
     assert kernels[0] == kernels[1] > 0
+
+
+# ------------------------------------------------ K6: the Schur-CG point pass
+
+
+def _schur_inputs(card, n_cams, n_pts, n_obs, seed=0, shuffled=False, empty_pts=0, empty_cams=0,
+                  long_track=0):
+    """Random CG inputs on an observation set of tracks: each point with
+    observations seen by a run of 3 or more consecutive cameras (mean
+    n_obs / points), `empty_pts` points and the last `empty_cams` cameras
+    seen by none, one point seen by `long_track` cameras; observations
+    point by point, or shuffled. Cameras 0 and 1 fixed."""
+    rng = np.random.default_rng(seed)
+    seen = np.sort(rng.permutation(n_pts)[: n_pts - empty_pts])
+    cams = n_cams - empty_cams
+    n_rest = n_obs - long_track
+    lengths = np.full(len(seen), 3)
+    extra = rng.multinomial(n_rest - 3 * len(seen), np.ones(len(seen)) / len(seen))
+    lengths += np.minimum(extra, cams - 3)
+    lengths[0] += n_rest - lengths.sum()
+    obs_pt = np.repeat(seen, lengths)
+    first = rng.integers(0, cams, len(seen))
+    start = np.cumsum(lengths) - lengths
+    obs_cam = (np.repeat(first, lengths) + np.arange(len(obs_pt)) - np.repeat(start, lengths)) % cams
+    if long_track:
+        obs_pt = np.concatenate([obs_pt, np.full(long_track, seen[len(seen) // 2])])
+        obs_cam = np.concatenate([obs_cam, np.arange(long_track) % cams])
+    if shuffled:
+        order = rng.permutation(len(obs_pt))
+        obs_pt, obs_cam = obs_pt[order], obs_cam[order]
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    O = len(obs_pt)
+    t = dict(
+        A=torch.randn((O, 6, 3), generator=g, device=card),
+        obs_cam=torch.from_numpy(obs_cam).to(card), obs_pt=torch.from_numpy(obs_pt).to(card),
+        vinv=torch.randn((n_pts, 3, 3), generator=g, device=card),
+        mask=torch.where(torch.arange(n_cams, device=card) < 2, 0.0, 1.0)[:, None],
+        x=torch.randn((n_cams, 6), generator=g, device=card),
+        ud=torch.randn((n_cams, 6, 6), generator=g, device=card),
+        bc=torch.randn((n_cams, 6), generator=g, device=card),
+        bp=torch.randn((n_pts, 3), generator=g, device=card),
+    )
+    return t, n_cams, n_pts
+
+
+def _schur_plain(t, C, P):
+    """Every entry of SchurProducts by the plain version, on the card."""
+    from opencv_tpu_torch.ops.cuda import schur_cg
+
+    A, cam, pt, mask, vinv = t["A"], t["obs_cam"], t["obs_pt"], t["mask"], t["vinv"]
+
+    def w_vinv(g):
+        return schur_cg.w_z_plain(A, cam, pt, torch.einsum("pij,pj->pi", vinv, g), C)
+
+    xm = t["x"] * mask
+    return {
+        "wt_x": schur_cg.wt_x_plain(A, cam, pt, xm, P),
+        "w_vinv": w_vinv(t["bp"]),
+        "smv": (torch.einsum("cij,cj->ci", t["ud"], xm) - w_vinv(schur_cg.wt_x_plain(A, cam, pt, xm, P))) * mask,
+        "rhs": (t["bc"] - w_vinv(t["bp"])) * mask,
+        "back": torch.einsum("pij,pj->pi", vinv, t["bp"] - schur_cg.wt_x_plain(A, cam, pt, xm, P)),
+    }
+
+
+def _schur_kernel(t, C, P):
+    """Every entry of SchurProducts, and S p and the back-substitution by
+    the halves a process group runs (without its all-reduces)."""
+    from opencv_tpu_torch.ops.cuda import schur_cg
+
+    prods = schur_cg.SchurProducts(t["A"], t["obs_cam"], t["obs_pt"], t["vinv"], t["mask"], C, P)
+    g = prods.wt_x(t["x"])
+    h = prods.w_vinv(t["bp"])
+    out = {"wt_x": g, "w_vinv": h, "smv": prods.smv(t["x"], t["ud"]), "rhs": prods.finish(h, base=t["bc"]),
+           "back": prods.back(t["x"], t["bp"])}
+    halves = {"smv": prods.finish(prods.w_vinv(g), ud=t["ud"], x=t["x"]),
+              "back": prods.apply_vinv(t["bp"] - g)}
+    torch.cuda.synchronize()
+    return out, halves, prods
+
+
+def _assert_schur_close(got, want):
+    """Float32 sums in another order: per camera over its observations (up
+    to ~4 000 terms at KITTI 00's width) and per point over its track, by
+    shared-memory atomics and 132 block partials against index_add_'s
+    atomics. Each entry within 1e-4 of the largest entry of its product
+    (a missed or doubled observation moves an entry by ~1e-2 of it)."""
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        err = float((got[k] - w).abs().max())
+        assert err <= 1e-4 * scale, (k, err, scale)
+
+
+SCHUR_CASES = {
+    "kitti07_width": dict(n_cams=1101, n_pts=275_250, n_obs=2_202_000),
+    "kitti00_width": dict(n_cams=2000, n_pts=500_000, n_obs=4_000_000),
+    "shuffled": dict(n_cams=1101, n_pts=275_250, n_obs=2_202_000, shuffled=True, seed=1),
+    "empty_points_and_cameras": dict(n_cams=300, n_pts=50_000, n_obs=300_000, empty_pts=5_000,
+                                     empty_cams=20, seed=2),
+    "long_tracks": dict(n_cams=3000, n_pts=20_000, n_obs=200_000, long_track=2_500, shuffled=True, seed=3),
+    "global_accumulator": dict(n_cams=5000, n_pts=100_000, n_obs=800_000, seed=4),
+    "tiny": dict(n_cams=7, n_pts=40, n_obs=150, empty_pts=3, seed=5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SCHUR_CASES))
+def test_schur_cg_kernel_equals_plain(card, case):
+    """Every entry of the point pass (S p fused, the right-hand side, the
+    back-substitution, W^T x, W V^-1 g) against the plain version, with
+    fixed cameras; C = 3000 and 5000 take the global accumulator. The
+    back-substitution by the halves gives the fused pass's bits, and so
+    does S p where h is not summed by atomics. The shared-memory
+    accumulator sums in a fixed order: the same bits twice."""
+    from opencv_tpu_torch.ops.cuda import schur_cg
+
+    t, C, P = _schur_inputs(card, **SCHUR_CASES[case])
+    got, halves, prods = _schur_kernel(t, C, P)
+    assert set(got) == {"wt_x", "w_vinv", "smv", "rhs", "back"}
+    assert prods.acc == ("global" if C >= 3000 else "smem")
+    assert prods.acc == schur_cg.plan(C, False)[0]
+    _assert_schur_close(got, _schur_plain(t, C, P))
+    assert bool((got["smv"][:2] == 0).all()) and bool((got["rhs"][:2] == 0).all())
+    assert torch.equal(halves["back"], got["back"])
+    if prods.acc == "smem":
+        assert torch.equal(halves["smv"], got["smv"])
+        again, _, _ = _schur_kernel(t, C, P)
+        for k in got:
+            assert torch.equal(got[k], again[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["kitti07_width", "long_tracks", "empty_points_and_cameras"])
+def test_schur_cg_deterministic_is_bit_stable(card, case):
+    """Under deterministic algorithms every sum takes a fixed order (h by
+    camera runs in shared memory, or, where it does not fit, per
+    observation and then camera by camera): two runs give the same bits,
+    the halves give the fused pass's, all close to the plain version."""
+    from opencv_tpu_torch.ops.cuda import schur_cg
+
+    t, C, P = _schur_inputs(card, **SCHUR_CASES[case])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        first, halves, prods = _schur_kernel(t, C, P)
+        again, _, _ = _schur_kernel(t, C, P)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert prods.acc == ("ordered" if C >= 3000 else "smem") == schur_cg.plan(C, True)[0]
+    for k in first:
+        assert torch.equal(first[k], again[k]), k
+    for k in halves:
+        assert torch.equal(halves[k], first[k]), k
+    _assert_schur_close(first, _schur_plain(t, C, P))
+
+
+@pytest.mark.cuda
+def test_schur_cg_launches_in_bundle_adjust(card):
+    """A CG solve on the card goes through the point pass (one right-hand
+    side, cg_iters fused products and one back-substitution a step, all
+    with h in shared memory) and the one-block CG update (cg_iters + 1 a
+    step); a dense one does not."""
+    import chip_smoke
+
+    from opencv_tpu_torch import convert
+    from opencv_tpu_torch.optim import ba
+    from opencv_tpu_torch.utils import profiler
+
+    p = convert.ba_problem(chip_smoke.ba_scene(n_cams=20, n_pts=2000, views=6), device=card)
+    iters, cg_iters = 3, 10
+    cuda_ops.reset_launch_counts()
+    profiler.reset()
+    profiler.enable(True)
+    try:
+        ba.bundle_adjust(p, iters=iters, solver="cg", cg_iters=cg_iters)
+        torch.cuda.synchronize()
+        counters = profiler.counters()
+    finally:
+        profiler.enable(False)
+        profiler.reset()
+    assert {k: v for k, v in cuda_ops.launch_counts.items() if k.startswith("schur_cg")} == {
+        "schur_cg_full": iters * cg_iters, "schur_cg_hz": iters, "schur_cg_back": iters, "schur_cg_g": 0,
+        "schur_cg_update": iters * (cg_iters + 1)}
+    assert counters["ba.cg.pass.smem"] == iters * (cg_iters + 2)
+    assert "ba.cg.pass.global" not in counters and "ba.cg.pass.ordered" not in counters
+    cuda_ops.reset_launch_counts()
+    ba.bundle_adjust(p, iters=iters, solver="dense")
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in cuda_ops.launch_counts.values())

@@ -23,7 +23,8 @@ from _torch_cpu import one_torch_thread  # noqa: F401  (autouse fixture)
 # rejected (5 of 8 accepted through the CG solver on this scene).
 SETTINGS = dict(iters=8, cg_iters=5, lambda0=1e-8)
 PARENT = {"ba.bundle_adjust": None, "ba.step": "ba.bundle_adjust", "ba.normal_eq": "ba.step",
-          "ba.schur": "ba.step", "ba.update": "ba.step", "ba.cg.wtx": "ba.schur", "ba.cg.wz": "ba.schur"}
+          "ba.schur": "ba.step", "ba.update": "ba.step", "ba.cg.wtx": "ba.schur", "ba.cg.wz": "ba.schur",
+          "ba.cg.smv": "ba.schur"}
 
 
 @pytest.fixture(scope="module")
@@ -53,9 +54,10 @@ def test_span_counts_per_solve(problem, recorder, solver):
     steps = 2 * SETTINGS["iters"]
     want = {"ba.bundle_adjust": 2, "ba.step": steps, "ba.normal_eq": steps, "ba.schur": steps, "ba.update": steps}
     if solver == "cg":
-        # W^T x once per CG iteration and in the back-substitution; W z for
-        # the right-hand side and once per iteration
-        want["ba.cg.wtx"] = want["ba.cg.wz"] = steps * (SETTINGS["cg_iters"] + 1)
+        # W z for the right-hand side, S p once per CG iteration, W^T x in
+        # the back-substitution
+        want["ba.cg.wtx"] = want["ba.cg.wz"] = steps
+        want["ba.cg.smv"] = steps * SETTINGS["cg_iters"]
     assert Counter(s["name"] for s in profiler.spans()) == want
 
 
@@ -129,7 +131,7 @@ def test_spans_share_the_profilers_clock(problem, recorder, tmp_path):
     events = sorted((e for e in trace["traceEvents"] if e.get("ph") == "X" and e.get("cat") == "user_annotation"
                      and e["name"] in PARENT), key=lambda e: e["ts"])
     spans = sorted(profiler.spans(), key=lambda s: s["start_ns"])
-    assert [e["name"] for e in events] == [s["name"] for s in spans] and len(spans) == 1 + 2 * (4 + 2 * 4)
+    assert [e["name"] for e in events] == [s["name"] for s in spans] and len(spans) == 1 + 2 * (4 + 2 + 3)
     for e, s in zip(events, spans):
         assert abs(base_us + e["ts"] - s["start_ns"] / 1e3) < 1000.0
         assert abs(base_us + e["ts"] + e["dur"] - s["end_ns"] / 1e3) < 1000.0
