@@ -1,5 +1,6 @@
-"""cg_roofline: the least time of `schur_cg_solve` (A and the index rows
-read once per CG iteration at HBM bandwidth) over its measured time, in %."""
+"""cg_roofline: the least time of `schur_cg_solve` (A, at the camera's
+width, and the index rows read once per CG iteration at HBM bandwidth)
+over its measured time, in %."""
 
 from portbench import roofline
 
@@ -9,4 +10,5 @@ def read(record):
     if ms is None:
         return None
     s = record["shapes"]
-    return 100.0 * roofline.cg_least_s(s["cg_iters"], s["observations"], record["kind"]) / (ms * 1e-3)
+    least = roofline.cg_least_s(s["cg_iters"], s["observations"], s["camera_params"], record["kind"])
+    return 100.0 * least / (ms * 1e-3)

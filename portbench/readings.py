@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import argparse
 import functools
-import importlib
 import json
 import os
 import sys
@@ -28,7 +27,6 @@ import torch
 from portbench import check
 from portbench.card import Card
 from portbench.faults import FAULTS
-from portbench.generate import make_problem
 from portbench.run import Cell
 
 
@@ -36,11 +34,11 @@ def readings(cell: Cell, seeds, n_control: int, faults: bool, card) -> list:
     from opencv_tpu_torch.optim import ba
 
     tr = cell.traffic
-    ref = importlib.import_module(f"portbench.reference.{cell.config['reference']}")
+    ref = cell.reference()
     kw = cell.lm_settings()
     rows = []
     for i, seed in enumerate(seeds):
-        inputs = make_problem(cell.config, tr, seed, card.device)
+        inputs = cell.make_problem(seed, card.device)
         p = ba.BAProblem(**inputs)
         solve = functools.partial(ba.bundle_adjust, p, solver="cg", **kw)
         if i == 0:
@@ -52,17 +50,17 @@ def readings(cell: Cell, seeds, n_control: int, faults: bool, card) -> list:
         ref_out = ref.bundle_adjust(inputs, **kw)
         card.sync()
         t2 = time.perf_counter()
-        row = {"seed": seed, "program": check.compare(inputs, [(q.cam_rvec, q.cam_tvec, q.points, c)
-                                                                for q, c in outs], ref_out, ref),
+        row = {"seed": seed, "program": check.compare(inputs, [cell.sample(o) for o in outs], ref_out, ref,
+                                                      cell.solved),
                "program_s": (t1 - t0) / len(outs), "reference_s": t2 - t1}
         del outs
         if i < n_control:
             ctl = ref.bundle_adjust(inputs, ar=ref.Arith(torch.float32, tf32=True), **kw)
-            row["control"] = check.compare(inputs, [ctl], ref_out, ref)
+            row["control"] = check.compare(inputs, [ctl], ref_out, ref, cell.solved)
             if faults:
                 for name, fault in FAULTS.items():
-                    q, c = fault(ba.bundle_adjust)(p, solver="cg", **kw)
-                    row[name] = check.compare(inputs, [(q.cam_rvec, q.cam_tvec, q.points, c)], ref_out, ref)
+                    out = fault(ba.bundle_adjust)(p, solver="cg", **kw)
+                    row[name] = check.compare(inputs, [cell.sample(out)], ref_out, ref, cell.solved)
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows

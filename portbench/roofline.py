@@ -11,9 +11,12 @@ PEAKS = {
     "NVIDIA H100 80GB HBM3": {"hbm_byte_s": 3.35e12},
 }
 
-# One CG iteration reads A ([O, 6, 3] float32, 72 B an observation) once,
-# and the observation's camera and point indices (int64, 16 B).
-CG_BYTES_PER_OBS_ITER = 72 + 16
+
+def cg_bytes_per_obs(camera_params: int) -> int:
+    """Bytes one CG iteration reads an observation: A ([O, camera_params,
+    3] float32) once, and the observation's camera and point indices
+    (int64, 16 B). 88 B for a 6-parameter camera."""
+    return 12 * camera_params + 16
 
 
 def peaks(kind: str) -> dict:
@@ -22,7 +25,7 @@ def peaks(kind: str) -> dict:
     return PEAKS[kind]
 
 
-def cg_least_s(cg_iters: int, n_obs: int, kind: str) -> float:
+def cg_least_s(cg_iters: int, n_obs: int, camera_params: int, kind: str) -> float:
     """Least time of `schur_cg_solve`: A and the index rows read once per
     CG iteration at HBM bandwidth."""
-    return cg_iters * n_obs * CG_BYTES_PER_OBS_ITER / peaks(kind)["hbm_byte_s"]
+    return cg_iters * n_obs * cg_bytes_per_obs(camera_params) / peaks(kind)["hbm_byte_s"]

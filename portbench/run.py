@@ -5,8 +5,30 @@
 from the root of a checkout. Everything is found by name: the cell in
 BENCHMARK.json, its configuration in the file that BENCHMARK.json names,
 its traffic in portbench/traffic/<traffic>.json, each metric's reader in
-portbench/metrics/<metric>.py and the configuration's plain reference in
-portbench/reference/<reference>.py.
+portbench/metrics/<metric>.py, the configuration's problem generator in
+portbench/<generator>.py and its plain reference in
+portbench/reference/<reference>.py. A configuration (a deployment) is
+added with files and entries alone; its file brings:
+
+- "generator" (default "generate", the closed road loop): a module whose
+  `make_problem(config, traffic, seed, device)` returns a dict of the
+  program's `BAProblem` fields, drawn on `device` from `seed`. The run
+  passes them on as they are: `BAProblem(**fields)`, `bundle_adjust(p,
+  solver="cg", iters, lambda0, huber_delta, cg_iters)` and, for the
+  layer timings, `normal_equations(p, huber_delta)` and
+  `schur_cg_solve(eqs, obs_cam, obs_pt, lam, fixed_cams, cg_iters)`.
+  Only the CG solver is measured: no cell runs the dense one.
+- "reference": a module with `bundle_adjust(fields, iters, lambda0,
+  huber_delta, cg_iters, ar=None)`, returning the solved fields and then
+  the cost, `residuals(fields, ar)` ([O, 2]) and `Arith()` (float64, or
+  `Arith(torch.float32, tf32=True)` for the control). It imports nothing
+  of the program.
+- "solved" (default ["cam_rvec", "cam_tvec", "points"]): the `BAProblem`
+  fields the solve estimates, in the order the reference returns them.
+  The fields named cam_* sum to the camera's width, which the CG's
+  roofline counts.
+- "camera": its "fx" (and "fy") are read only where the traffic sets a
+  Huber threshold in pixels.
 
 Set-up (counted in setup_s from the start of this module): the program's
 import, the problem generated on the card from --seed, and one solve at
@@ -14,9 +36,11 @@ the cell's shapes. Then, with --trace 0, whole solves (`iters` LM steps of
 `bundle_adjust` from the same start, each ended by a synchronize) run back
 to back until --seconds have passed; with --trace 1, `trace_solves` solves
 run under the profiler and each layer is timed by CUDA events. Once the
-window has closed and the memory peak is read, the plain reference solves
-the same problem and a sample of the window's solves, drawn from the seed,
-is compared with it.
+window has closed and the memory peak is read, --trace 1 also runs
+`trace_solves` solves with the program's recorder on, outside the
+profiler, for the readers of its spans and counters (`record["program"]`).
+Then the plain reference solves the same problem and a sample of the
+window's solves, drawn from the seed, is compared with it.
 """
 
 from __future__ import annotations
@@ -27,7 +51,6 @@ T0 = time.perf_counter()
 
 import argparse  # noqa: E402
 import functools  # noqa: E402
-import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -38,9 +61,8 @@ from pathlib import Path  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from portbench import check  # noqa: E402
+from portbench import check, spans  # noqa: E402
 from portbench.card import Card, NoCard  # noqa: E402
-from portbench.generate import make_problem  # noqa: E402
 
 CHECKOUT = Path(__file__).resolve().parents[1]
 BUILD = CHECKOUT / "build" / "portbench"
@@ -72,26 +94,53 @@ class Cell:
         mine = [m for m in bench["end_to_end"] + bench["per_layer"] if name in m.get("workloads", [name])]
         self.end_to_end = [m for m in mine if "layer" not in m]
         self.per_layer = [m for m in mine if "layer" in m]
+        self.solved = tuple(self.config.get("solved", check.SOLVED))
 
     def lm_settings(self) -> dict:
         """`bundle_adjust`'s settings but the solver, with the Huber
         threshold turned from pixels into normalized image units. Only the
         CG solver is measured: the layer timings and the reference run it."""
-        tr, cam = self.traffic, self.config["camera"]
+        tr = self.traffic
         if tr["solver"] != "cg":
             raise ValueError(f"traffic solver {tr['solver']!r}: only the CG solver is measured")
-        px = tr["huber_delta_px"]
-        if px is not None and cam["fx"] != cam["fy"]:
-            raise ValueError("a Huber threshold in pixels needs fx == fy")
-        return dict(iters=tr["lm_iters"], lambda0=tr["lambda0"], cg_iters=tr["cg_iters"],
-                    huber_delta=None if px is None else px / cam["fx"])
+        px, huber = tr["huber_delta_px"], None
+        if px is not None:
+            cam = self.config["camera"]
+            if cam["fx"] != cam["fy"]:
+                raise ValueError("a Huber threshold in pixels needs fx == fy")
+            huber = px / cam["fx"]
+        return dict(iters=tr["lm_iters"], lambda0=tr["lambda0"], cg_iters=tr["cg_iters"], huber_delta=huber)
 
-    def reader(self, metric: str):
-        path = self.root / "portbench" / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(f"portbench_metric_{metric.replace('.', '_')}", path)
+    def _load(self, rel: str):
+        """The module in the file `rel` of this checkout, loaded by path."""
+        spec = importlib.util.spec_from_file_location(f"portbench_{rel[:-3].replace('/', '_').replace('.', '_')}",
+                                                      self.root / rel)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        return mod.read
+        return mod
+
+    def make_problem(self, seed: int, device) -> dict:
+        """The start problem (`BAProblem`'s fields) of this cell's traffic,
+        drawn from `seed` by the configuration's generator."""
+        gen = self._load(f"portbench/{self.config.get('generator', 'generate')}.py")
+        return gen.make_problem(self.config, self.traffic, seed, device)
+
+    def reference(self):
+        """The configuration's plain reference module."""
+        return self._load(f"portbench/reference/{self.config['reference']}.py")
+
+    def sample(self, out) -> tuple:
+        """The solved fields of a solve's (problem, cost), then the cost."""
+        q, c = out
+        return tuple(getattr(q, f) for f in self.solved) + (c,)
+
+    def reader(self, metric: str):
+        return self._load(f"portbench/metrics/{metric}.py").read
+
+
+def camera_params(fields: dict, solved) -> int:
+    """The camera's width: the summed widths of the `solved` cam_* fields."""
+    return sum(fields[f][0].numel() for f in solved if f.startswith("cam_"))
 
 
 def _no_tf32():
@@ -125,7 +174,7 @@ def run(args, cell: Cell, card) -> tuple:
     card.reset_peak()
     card.sync()
     marks = [time.perf_counter()]
-    inputs = make_problem(cell.config, tr, args.seed, card.device)
+    inputs = cell.make_problem(args.seed, card.device)
     p = ba.BAProblem(**inputs)
     card.sync()
     marks.append(time.perf_counter())
@@ -136,8 +185,8 @@ def run(args, cell: Cell, card) -> tuple:
     marks.append(time.perf_counter())
     record = {"setup_s": marks[-1] - T0, "kind": card.kind(),
               "shapes": {"cameras": p.cam_rvec.shape[0], "points": p.points.shape[0],
-                         "observations": p.obs_cam.shape[0], "lm_iters": tr["lm_iters"],
-                         "cg_iters": tr["cg_iters"]}}
+                         "observations": p.obs_cam.shape[0], "camera_params": camera_params(inputs, cell.solved),
+                         "lm_iters": tr["lm_iters"], "cg_iters": tr["cg_iters"]}}
 
     draw = np.random.default_rng([abs(args.seed), 0x5EED])
     k = tr["check_samples"]
@@ -145,10 +194,9 @@ def run(args, cell: Cell, card) -> tuple:
     bad = torch.zeros((), dtype=torch.int64, device=card.device)
 
     def keep(i, out):
-        (q, c) = out
         nonlocal bad
-        bad = bad + (~torch.isfinite(c)).long()
-        kept = (q.cam_rvec, q.cam_tvec, q.points, c)
+        kept = cell.sample(out)
+        bad = bad + (~torch.isfinite(kept[-1])).long()
         if len(samples) < k:
             samples.append(kept)
         elif (j := int(draw.integers(0, i + 1))) < k:
@@ -189,12 +237,18 @@ def run(args, cell: Cell, card) -> tuple:
 
     peak = card.memory_peak()
     failed = int(bad)
+    if args.trace:
+        def solves():
+            for _ in range(tr["trace_solves"]):
+                solve()
+
+        _, record["program"] = spans.recorded(solves, card)
     if card.device == "cuda":
         torch.cuda.empty_cache()
 
-    ref = importlib.import_module(f"portbench.reference.{cell.config['reference']}")
+    ref = cell.reference()
     ref_out = ref.bundle_adjust(inputs, **kw)
-    within, shown = check.judge(check.compare(inputs, samples, ref_out, ref), tr["limits"])
+    within, shown = check.judge(check.compare(inputs, samples, ref_out, ref, cell.solved), tr["limits"])
 
     metrics = {}
     for m in (cell.per_layer if args.trace else cell.end_to_end):

@@ -5,9 +5,9 @@ per-layer numbers, and a tool that records them on a cell's problem:
 
 A `program` record is {"spans": profiler.spans(), "counters":
 profiler.counters()} of opencv_tpu_torch/utils/profiler.py, taken over
-whole solves with the recorder on. The readers portbench/metrics/
-*_span_ms.py and lm_accepted_pct.py take it as `record["program"]`; a run
-of portbench/run.py does not record one yet (PERF.md, Open questions).
+whole solves with the recorder on (`recorded`). The readers
+portbench/metrics/*_span_ms.py and lm_accepted_pct.py take it as
+`record["program"]`, which a --trace 1 run of portbench/run.py records.
 
 The tool generates the cell's problem from --seed as a run does, then
 runs, recorder on where named: the warm solve, on (host seconds by span,
@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import os
 import sys
@@ -35,10 +36,31 @@ from portbench import trace
 
 ROOT, STEP = "ba.bundle_adjust", "ba.step"
 STEP_PARTS = ("ba.normal_eq", "ba.schur", "ba.update")
-METRICS = ("normal_eq_span_ms", "schur_span_ms", "cg_wtx_span_ms", "cg_wz_span_ms", "lm_update_span_ms",
-           "lm_accepted_pct")
+METRICS = ("normal_eq_span_ms", "schur_span_ms", "cg_smv_span_ms", "lm_update_span_ms", "lm_accepted_pct")
 SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 BEFORE = "(before the first step)"
+
+
+def recorded(fn, card) -> tuple:
+    """(fn()'s result, the program record of it): the recorder on from a
+    reset, then the card synchronized before its spans are read.
+
+    Earlier work's garbage is collected first: a profiler's session leaves
+    cycles whose collection, where it fell inside a recorded solve, held
+    the host for 0.24-0.33 s in one LM step's normal equations (KITTI 00's
+    cell on an H100), and their span with it."""
+    from opencv_tpu_torch.utils import profiler
+
+    gc.collect()
+    profiler.reset()
+    profiler.enable(True)
+    try:
+        out = fn()
+        card.sync()
+        return out, {"spans": profiler.spans(), "counters": profiler.counters()}
+    finally:
+        profiler.enable(False)
+        profiler.reset()
 
 
 def _timed(program) -> bool:
@@ -169,37 +191,23 @@ def measure(cell, seed: int, card, trace_file: Path) -> tuple:
     import torch
 
     from opencv_tpu_torch.optim import ba
-    from opencv_tpu_torch.utils import profiler
-    from portbench.generate import make_problem
     from portbench.run import _no_tf32
 
     tr, kw = cell.traffic, cell.lm_settings()
-    p = ba.BAProblem(**make_problem(cell.config, tr, seed, card.device))
+    p = ba.BAProblem(**cell.make_problem(seed, card.device))
     solve = functools.partial(ba.bundle_adjust, p, solver="cg", **kw)
     lm_iters = tr["lm_iters"]
 
-    def recorded(fn):
-        """fn()'s result and the program record of it, recorder on."""
-        profiler.reset()
-        profiler.enable(True)
-        try:
-            out = fn()
-            card.sync()
-            return out, {"spans": profiler.spans(), "counters": profiler.counters()}
-        finally:
-            profiler.enable(False)
-            profiler.reset()
-
     card.sync()
     t0 = time.perf_counter()
-    _, warm_program = recorded(solve)
+    _, warm_program = recorded(solve, card)
     warm_s = time.perf_counter() - t0
     warm = warm_split(warm_program["spans"])
-    _, program = recorded(solve)
+    _, program = recorded(solve, card)
     off_events = profiled_events(solve, trace_file)
     off, off_kernels = trace.reduce(off_events), _kernels(off_events)
     del off_events
-    events, traced = recorded(lambda: profiled_events(solve, trace_file))
+    events, traced = recorded(lambda: profiled_events(solve, trace_file), card)
     on, on_kernels = trace.reduce(events), _kernels(events)
     idle = idle_by_span(events, {s["name"] for s in traced["spans"]})
     syncs = syncs_inside(events)

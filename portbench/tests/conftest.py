@@ -61,8 +61,9 @@ TINY = [
     ("tiny-seq07", "kitti07-orbslam2", "seq-tiny07", {"cameras": 160, "points": 300, "observations": 2400}),
     ("tiny-seq00", "kitti00-orbslam2", "seq-tiny00", {"cameras": 200, "points": 400, "observations": 3200}),
 ]
-# What a tiny cell reports: every metric listed for the cells (no tail
-# metric exists).
+# What a tiny cell reports: every metric listed for the cells but the
+# program's span metrics, which need the card's events (no tail metric
+# exists).
 TINY_METRICS = {"ba_solve_s", "normal_eq_ms", "schur_solve_ms", "cg_roofline", "device_idle_pct",
                 "kernels_per_lm_iter"}
 # Over 16 seeds on the CPU (with and without Huber weights) the program reads at most 3.9e-5
@@ -76,6 +77,33 @@ def fake_card(monkeypatch):
     return FakeCard()
 
 
+def add_cell(root: Path, cell: str, config: dict, traffic: dict) -> None:
+    """Add `cell` to the copy under `root` as a later change adds a cell:
+    new configuration and traffic files, and entries in BENCHMARK.json
+    (the cell listed in TINY_METRICS)."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    name = config["name"]
+    (root / "portbench" / "configs" / f"{name}.json").write_text(json.dumps(config))
+    bench["configs"].append({"name": name, "source": "a test", "file": f"portbench/configs/{name}.json",
+                             "reduced": [], "why": "a test's tiny deployment"})
+    (root / "portbench" / "traffic" / f"{cell}.json").write_text(json.dumps(traffic))
+    bench["workloads"].append({"name": cell, "config": name, "traffic": cell, "chips": 1, "why": "a test's tiny cell"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in m and m["name"] in TINY_METRICS:
+            m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+def tiny_config(like: str, name: str, problem: str, counts: dict) -> dict:
+    cfg = json.loads((REPO / "portbench" / "configs" / f"{like}.json").read_text())
+    return dict(cfg, name=name, problems={problem: counts})
+
+
+def tiny_traffic(problem: str) -> dict:
+    return {"problem": problem, "solver": "cg", "lm_iters": 10, "cg_iters": 60, "huber_delta_px": None,
+            "lambda0": 0.0001, "check_samples": 3, "trace_solves": 2, "layer_reps": 2, "limits": TINY_LIMITS}
+
+
 @pytest.fixture
 def bench_root(tmp_path):
     """A copy of BENCHMARK.json and portbench/ to which tiny cells are
@@ -84,23 +112,6 @@ def bench_root(tmp_path):
     shutil.copy(REPO / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
     shutil.copytree(REPO / "portbench", tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
     for name, like, problem, counts in TINY:
-        cfg = json.loads((REPO / "portbench" / "configs" / f"{like}.json").read_text())
-        cfg.update(name=name, problems={problem: counts})
-        (tmp_path / "portbench" / "configs" / f"{name}.json").write_text(json.dumps(cfg))
-        bench["configs"].append({"name": name, "source": "a test", "file": f"portbench/configs/{name}.json",
-                                 "reduced": [], "why": "a test's tiny deployment"})
-        traffic = f"{problem}.cg"
-        (tmp_path / "portbench" / "traffic" / f"{traffic}.json").write_text(json.dumps({
-            "problem": problem, "solver": "cg", "lm_iters": 10, "cg_iters": 60,
-            "huber_delta_px": None, "lambda0": 0.0001, "check_samples": 3, "trace_solves": 2, "layer_reps": 2,
-            "limits": TINY_LIMITS}))
-        cell = f"tiny.{name}"
-        bench["workloads"].append({"name": cell, "config": name, "traffic": traffic, "chips": 1,
-                                   "why": "a test's tiny cell"})
-        for m in bench["end_to_end"] + bench["per_layer"]:
-            if "workloads" in m and m["name"] in TINY_METRICS:
-                m["workloads"].append(cell)
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+        add_cell(tmp_path, f"tiny.{name}", tiny_config(like, name, problem, counts), tiny_traffic(problem))
     return tmp_path

@@ -22,18 +22,22 @@ def _span(i, name, parent, t0, t1, ms):
 
 
 def _program(timed=True):
-    """Two LM steps of one solve: each step's parts, two CG products each."""
+    """Two LM steps of one solve: each step's parts; inside the Schur
+    solve the right-hand side's W z, two CG products S p and the
+    back-substitution's W^T x."""
     out, i = [_span(0, "ba.bundle_adjust", None, 0, 1000, 100.0)], 1
     for k in range(2):
         step = i
         out.append(_span(step, "ba.step", 0, 10 + 490 * k, 490 + 490 * k, 49.0))
         i += 1
         for name, ms in (("ba.normal_eq", 5.0), ("ba.schur", 40.0), ("ba.update", 3.5)):
-            out.append(_span(i, name, step, 20 + 490 * k, 30 + 490 * k, ms))
-            if name == "ba.schur":
-                out += [_span(i + 1, "ba.cg.wtx", i, 21, 22, 20.0), _span(i + 2, "ba.cg.wz", i, 23, 24, 12.0)]
-                i += 2
+            part = i
+            out.append(_span(part, name, step, 20 + 490 * k, 30 + 490 * k, ms))
             i += 1
+            if name == "ba.schur":
+                for child, cms in (("ba.cg.wz", 1.0), ("ba.cg.smv", 20.0), ("ba.cg.smv", 12.0), ("ba.cg.wtx", 1.5)):
+                    out.append(_span(i, child, part, 21, 22, cms))
+                    i += 1
     if not timed:
         out = [dict(s, device_ms=None) for s in out]
     return {"spans": out, "counters": {"ba.lm_accepted": 1, "ba.lm_steps": 2}}
@@ -41,8 +45,8 @@ def _program(timed=True):
 
 def test_readers_on_a_hand_made_record():
     rec = {"program": _program()}
-    want = {"normal_eq_span_ms": 5.0, "schur_span_ms": 40.0, "cg_wtx_span_ms": 20.0, "cg_wz_span_ms": 12.0,
-            "lm_update_span_ms": 3.5, "lm_accepted_pct": 50.0}
+    want = {"normal_eq_span_ms": 5.0, "schur_span_ms": 40.0, "cg_smv_span_ms": 32.0, "lm_update_span_ms": 3.5,
+            "lm_accepted_pct": 50.0}
     assert {m: _reader(m)(rec) for m in spans.METRICS} == pytest.approx(want)
 
 
@@ -111,7 +115,7 @@ def test_tool_on_a_tiny_cell(bench_root, fake_card, tmp_path):
     assert result["metrics"] == {m: None for m in spans.METRICS} and result["coverage"] is None
     assert result["syncs_inside_root"] == {} and set(result["replica"]) == {"normal_eq_ms", "schur_solve_ms"}
     warm = result["warm"]["host_s_first_step_and_rest"]
-    assert set(warm) == {spans.BEFORE, "ba.step", *spans.STEP_PARTS, "ba.cg.wtx", "ba.cg.wz"}
+    assert set(warm) == {spans.BEFORE, "ba.step", *spans.STEP_PARTS, "ba.cg.wtx", "ba.cg.wz", "ba.cg.smv"}
     # on the CPU the whole window is one gap, credited to the span open at its midpoint
     assert notes[0].startswith("idle by span: ba.") and notes[1].startswith("warm solve ")
     assert not (tmp_path / "trace.json").exists()
