@@ -26,8 +26,10 @@ Phases:
      matmul and an int8 torch._int_mm, each with topk) beside the bound
      (K3's: the int8 tensor-core operations of its +-1 product), and the
      first designs' times as labelled constants (FIRST_DESIGN_MS); K6,
-     the Schur-CG point pass, at the start problems of the benchmark's two
-     cells on the CG's own inputs, every product and the group's halves
+     the Schur-CG point pass, at the start problems of the benchmark's three
+     cells (6-wide KITTI cameras on the shared-memory route, BAL Venice's
+     9-wide ones on the global-atomics route) on the CG's own inputs,
+     every product and the group's halves
      within K6_RTOL of the plain version (k6_cell), timed beside the plain
      S p, the einsums alone and its byte bound;
   4. the twenty-seven paths, each cold, then warm WARM_RUNS times (once;
@@ -256,12 +258,13 @@ CLIP_SHA256 = "91a889b955006465fafa0f4c1d981b35fbca642ea72cdca41652e3698d89486f"
 K4_N = (2000, 512, 32, 200)
 
 # K6 at the start problems of the benchmark's cells (BENCHMARK.json's
-# configurations and traffic, portbench/generate.py at this seed), and
-# its tolerance against the plain version: each product's entries within
-# K6_RTOL of its largest (f32 sums in another order; a missed or doubled
-# observation moves an entry by ~1e-2 of it)
-K6_CELLS = {"ba.kitti07.cg": ("kitti07-orbslam2", "seq-07.global-ba"),
-            "ba.kitti00.cg": ("kitti00-orbslam2", "seq-00.global-ba")}
+# configurations and traffic, each configuration's own generator at this
+# seed: KITTI's 6-wide cameras on the shared-memory route, Venice's 9-wide
+# ones on the global-atomics route), and its tolerance against the plain
+# version: each product's entries within K6_RTOL of its largest (f32 sums
+# in another order; a missed or doubled observation moves an entry by
+# ~1e-2 of it)
+K6_CELLS = ("ba.kitti07.cg", "ba.kitti00.cg", "ba.venice.cg")
 K6_SEED = 2147483649
 K6_RTOL = 1e-4
 K6_LAUNCH_KEYS = ("schur_cg_full", "schur_cg_hz", "schur_cg_back", "schur_cg_g", "schur_cg_update")
@@ -559,11 +562,11 @@ def phase_kernels(frame0: np.ndarray, rates: dict) -> dict:
     return rows
 
 
-def k6_bound_bytes(n_obs: int, n_pts: int, n_cams: int) -> int:
-    """The bytes a Schur-CG product must move: A (72 B) and its camera
-    (4 B) an observation, the point offsets (4 B) and V^-1 (36 B) a
-    point, x and h (24 B each) a camera."""
-    return n_obs * 76 + n_pts * 40 + n_cams * 48
+def k6_bound_bytes(n_obs: int, n_pts: int, n_cams: int, width: int) -> int:
+    """The bytes a Schur-CG product must move at a camera width D: A
+    (12 D B) and its camera (4 B) an observation, the point offsets (4 B)
+    and V^-1 (36 B) a point, x and h (4 D B each) a camera."""
+    return n_obs * (12 * width + 4) + n_pts * 40 + n_cams * 8 * width
 
 
 def k6_cell(cell: str) -> dict:
@@ -574,25 +577,25 @@ def k6_cell(cell: str) -> dict:
     fused pass's bits: the world-1 sharded solver relies on it), against
     the plain version in float64 within K6_RTOL; then device times (the
     plain S p in float32, as the solver ran it before K6)."""
+    from pathlib import Path
+
     import torch
 
     from opencv_tpu_torch.device import no_tf32
     from opencv_tpu_torch.ops.cuda import schur_cg
     from opencv_tpu_torch.optim import ba
-    from portbench.generate import make_problem
+    from portbench.run import Cell
 
     dev = torch.device("cuda")
-    cfg_name, traffic_name = K6_CELLS[cell]
-    with open(os.path.join(REPO, "portbench", "configs", f"{cfg_name}.json")) as f:
-        config = json.load(f)
-    with open(os.path.join(REPO, "portbench", "traffic", f"{traffic_name}.json")) as f:
-        traffic = json.load(f)
-    p = ba.BAProblem(**make_problem(config, traffic, K6_SEED, dev))
+    bench = Cell(Path(REPO), cell)
+    p = ba.BAProblem(**bench.make_problem(K6_SEED, dev))
+    traffic = bench.traffic
     C, P, O = p.cam_rvec.shape[0], p.points.shape[0], p.obs_cam.shape[0]
     lam = torch.tensor(traffic["lambda0"], dtype=torch.float32, device=dev)
     with no_tf32():
         eqs = ba.normal_equations(p)
-        Ud = eqs.U + lam * torch.eye(6, device=dev)[None]
+        D = eqs.A.shape[1]
+        Ud = eqs.U + lam * torch.eye(D, device=dev)[None]
         Vinv = torch.linalg.inv_ex(eqs.V + lam * torch.eye(3, device=dev)[None])[0]
         Minv = torch.linalg.inv_ex(Ud)[0]
         mask = torch.where(p.fixed_cams, 0.0, 1.0)[:, None]
@@ -651,11 +654,11 @@ def k6_cell(cell: str) -> dict:
               "library": device_time_ms(lambda: (torch.einsum("oij,oi->oj", A, xm[cam]),
                                                  torch.einsum("oij,oj->oi", A, z[pt])), calls=3),
               "layout": device_time_ms(layout, calls=3)}
-    bound_ms = 1e3 * k6_bound_bytes(O, P, C) / HBM_BYTES_PER_S
-    out = dict(cameras=C, points=P, observations=O, accumulator=k.acc, stages=k.stages, blocks=k.blocks,
+    bound_ms = 1e3 * k6_bound_bytes(O, P, C, D) / HBM_BYTES_PER_S
+    out = dict(cameras=C, points=P, observations=O, width=D, accumulator=k.acc, stages=k.stages, blocks=k.blocks,
                rel_err=rel, max_abs_err=abs_err, halves_bits_equal=halves_equal, ms=ms, bound_ms=bound_ms,
                pass_of_bound_pct=100 * bound_ms / ms["pass"])
-    print(f"[K6] {cell}: {C} cameras, {P} points, {O} observations, accumulator {k.acc} ({k.stages} stages, "
+    print(f"[K6] {cell}: {C} cameras of width {D}, {P} points, {O} observations, accumulator {k.acc} ({k.stages} stages, "
           f"{k.blocks} blocks); largest error of each product against the plain version, over its largest "
           f"entry: " + ", ".join(f"{n} {e:.2e}" for n, e in rel.items()) + f" (bound {K6_RTOL:g}); the "
           f"halves give the fused pass's bits: {halves_equal}; FULL pass {ms['pass']:.4f} ms = "
@@ -671,7 +674,8 @@ def k6_cell(cell: str) -> dict:
 
 
 def phase_k6_kernel() -> dict:
-    """K6's row: k6_cell at both cells; the row's times are kitti07's."""
+    """K6's row: k6_cell at every cell of K6_CELLS; the row's times are
+    kitti07's."""
     import torch
 
     cells = {}
@@ -687,7 +691,7 @@ def phase_k6_kernel() -> dict:
                  "opencv_tpu/optim/ba.py schur_cg_solve)",
         max_abs_err=max(c["max_abs_err"] for c in cells.values()), ms=first["ms"]["pass"],
         plain_ms=first["ms"]["plain_smv"], library_ms=first["ms"]["library"], bound_ms=first["bound_ms"],
-        bound_by="bytes", shapes=[(c["observations"], 6, 3) for c in cells.values()], cells=cells,
+        bound_by="bytes", shapes=[(c["observations"], c["width"], 3) for c in cells.values()], cells=cells,
         launch_keys=K6_LAUNCH_KEYS)
 
 
@@ -5321,7 +5325,7 @@ def phase_dist(card: str, dev: str = "cuda") -> dict:
     finally:
         dist.destroy_process_group()
     a_err = float((sh.cam_tvec - s1.cam_tvec).abs().max())
-    a_equal = bool(torch.equal(cshd, cd) and all(torch.equal(x, y) for x, y in zip(shd, sd)))
+    a_equal = bool(torch.equal(cshd, cd) and all(x is y is None or torch.equal(x, y) for x, y in zip(shd, sd)))
     want = {"k3": matching.knn_match_auto(query, train, train_valid=tvalid, config=cfgs["k3"]),
             "dense": matching.knn_match(query, train, train_valid=tvalid, config=cfgs["dense"])}
     single_ms = {"k3": 1e3 * min(_secs(lambda: matching.knn_match_auto(

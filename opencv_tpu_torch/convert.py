@@ -164,10 +164,14 @@ def ba_problem(fields, device=None) -> BAProblem:
     """A JAX `BAProblem` (or a mapping of its field names, an npz file
     among them) as the port's: copied arrays on `device` (the card unless
     the caller asks for the CPU), the int32 observation indices widened
-    to int64."""
+    to int64. A field it lacks (`cam_intr`: the JAX problem's cameras
+    are calibrated) keeps the port's default."""
     dev = resolve_device(device)
-    get = fields.__getitem__ if isinstance(fields, Mapping) else lambda f: getattr(fields, f)
-    vals = {f: np.array(get(f)) for f in BAProblem._fields}
+    if isinstance(fields, Mapping):
+        have, get = fields.__contains__, fields.__getitem__
+    else:
+        have, get = (lambda f: hasattr(fields, f)), (lambda f: getattr(fields, f))
+    vals = {f: np.array(get(f)) for f in BAProblem._fields if have(f)}
     for f in ("obs_cam", "obs_pt"):
         vals[f] = vals[f].astype(np.int64)
     return BAProblem(**{f: torch.as_tensor(v, device=dev) for f, v in vals.items()})

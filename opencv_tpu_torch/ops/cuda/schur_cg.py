@@ -6,7 +6,9 @@ two per-observation products (W^T x, then W z after V^-1) to XLA's
 gathers and segment-sums. The plain version here is that code, einsum and
 `index_add_` per observation (`wt_x_plain`, `w_z_plain`); optim/ba.py runs
 it on CPU tensors. `SchurProducts` takes CUDA tensors only: one
-point-major pass over A a product, or it raises.
+point-major pass over A a product, or it raises. A is [O,D,3] for a camera
+of width D, 6 (rvec, t) or 9 (BAL's rvec, t, f, k1, k2): the kernel is
+built at both widths and every buffer here is sized by A.shape[1].
 
 The point-major layout (`point_layout`, once per solve, on the device and
 without a host synchronization): a stable sort of the observations by
@@ -63,24 +65,32 @@ ACCUMULATORS = {"smem": 0, "global": 1, "ordered": 2}
 
 def wt_x_plain(A: torch.Tensor, obs_cam: torch.Tensor, obs_pt: torch.Tensor, x: torch.Tensor,
                n_pts: int) -> torch.Tensor:
-    """W^T x [P,3] for x [C,6]: per observation A^T x_c, summed by point."""
+    """W^T x [P,3] for x [C,D]: per observation A^T x_c, summed by point."""
     tx = torch.einsum("oij,oi->oj", A, x[obs_cam])
     return torch.zeros((n_pts, 3), dtype=A.dtype, device=A.device).index_add_(0, obs_pt, tx)
 
 
 def w_z_plain(A: torch.Tensor, obs_cam: torch.Tensor, obs_pt: torch.Tensor, z: torch.Tensor,
               n_cams: int) -> torch.Tensor:
-    """W z [C,6] for z [P,3]: per observation A z_p, summed by camera."""
+    """W z [C,D] for z [P,3]: per observation A z_p, summed by camera."""
     wz = torch.einsum("oij,oj->oi", A, z[obs_pt])
-    return torch.zeros((n_cams, 6), dtype=A.dtype, device=A.device).index_add_(0, obs_cam, wz)
+    return torch.zeros((n_cams, A.shape[1]), dtype=A.dtype, device=A.device).index_add_(0, obs_cam, wz)
 
 
 # ------------------------------------------------------------ point-major layout
 
 
+def copy_step(width: int) -> int:
+    """Rows of A [O,width,3] (12 width bytes each) from which the kernel's
+    bulk copies start: the least multiple of 2 whose rows begin on 16-byte
+    boundaries (2 at width 6, 4 at BAL's 9); also the rows of padding
+    after A and the index pairs (csrc/schur_cg.cu `Width::STEP`)."""
+    return 2 if (24 * width) % 16 == 0 else 4
+
+
 class PointLayout(NamedTuple):
-    """perm [O] i64 (point-major position -> observation); idx [O+2,2] i32
-    (camera, point) point-major, two rows of padding; off [P+1] i32 (a
+    """perm [O] i64 (point-major position -> observation); idx [O+pad,2]
+    i32 (camera, point) point-major, `pad` rows of padding; off [P+1] i32 (a
     view of P+5 entries); chunk_obs, chunk_pt [K+1] i32; with
     `camera_runs`, cs [O] i16 (a view of O+8 entries): at each chunk's
     positions, its observations in camera order (stable; the chunk-local
@@ -100,15 +110,16 @@ class PointLayout(NamedTuple):
 
 
 def point_layout(obs_cam: torch.Tensor, obs_pt: torch.Tensor, n_cams: int, n_pts: int,
-                 camera_runs: bool = False, ordered: bool = False) -> PointLayout:
+                 camera_runs: bool = False, ordered: bool = False, pad: int = 2) -> PointLayout:
     """The point-major layout of the observations, on their device, with
-    no host synchronization."""
+    no host synchronization; `pad` rows of padding after the index pairs
+    (`copy_step` of the camera's width)."""
     dev = obs_pt.device
     n_obs = obs_pt.shape[0]
     if n_obs >= 2 ** 31 - 2 * STRIDE:
         raise ValueError(f"schur_cg: {n_obs} observations, at most 2^31 - {2 * STRIDE}")
     sorted_pt, perm = torch.sort(obs_pt, stable=True)
-    idx = torch.zeros((n_obs + 2, 2), dtype=torch.int32, device=dev)
+    idx = torch.zeros((n_obs + pad, 2), dtype=torch.int32, device=dev)
     idx[:n_obs, 0] = obs_cam[perm]
     idx[:n_obs, 1] = sorted_pt
     # four entries of padding (equal to n_obs) past off[P]: the kernel copies offsets 4 points at a time
@@ -151,16 +162,16 @@ def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.schur_cg_smem_optin.argtypes = []
         lib.schur_cg_smem_optin.restype = ci
-        lib.schur_cg_smem_bytes.argtypes = [ci, ci, ci, ci]
+        lib.schur_cg_smem_bytes.argtypes = [ci, ci, ci, ci, ci]
         lib.schur_cg_smem_bytes.restype = ci
-        lib.schur_cg_pass_launch.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp,
+        lib.schur_cg_pass_launch.argtypes = [ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp,
                                              ci, ci, ci, ci, vp]
         lib.schur_cg_pass_launch.restype = ci
-        lib.schur_cg_reduce_launch.argtypes = [ci, vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp]
+        lib.schur_cg_reduce_launch.argtypes = [ci, ci, vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp]
         lib.schur_cg_reduce_launch.restype = ci
-        lib.schur_cg_reduce_blocks.argtypes = [ci]
+        lib.schur_cg_reduce_blocks.argtypes = [ci, ci]
         lib.schur_cg_reduce_blocks.restype = ci
-        lib.schur_cg_update_launch.argtypes = [ci, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp]
+        lib.schur_cg_update_launch.argtypes = [ci, ci, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp]
         lib.schur_cg_update_launch.restype = ci
         lib._typed = True
     return lib
@@ -176,19 +187,24 @@ def _sm_count(dev: torch.device) -> int:
     return _SMS[key]
 
 
-def plan(n_cams: int, deterministic: bool) -> tuple[str, int, bool]:
+def plan(n_cams: int, deterministic: bool, width: int) -> tuple[str, int, bool]:
     """(accumulator, ring stages, x in shared memory) for a map of n_cams
-    cameras on the current card: h and x in shared memory beside three
-    stages, or two (a fixed summation order); else h by global atomics
-    and x through L1, or, under deterministic algorithms, h written per
-    observation and x in shared memory where it fits."""
+    cameras of `width` parameters on the current card: h and x in shared
+    memory beside three stages, or two (a fixed summation order); else h
+    by global atomics and x through L1, or, under deterministic
+    algorithms, h written per observation and x in shared memory where it
+    fits. A stage's rows of A and x and h grow with the width: at 9 the
+    shared-memory route holds ~960 cameras, at 6 ~2 360."""
     lib = _lib()
     optin = lib.schur_cg_smem_optin()
     if optin < 0:
         raise RuntimeError("schur_cg: no CUDA device to plan for")
 
     def fits(stages, x_smem, h_smem):
-        return lib.schur_cg_smem_bytes(stages, n_cams, int(x_smem), int(h_smem)) <= optin
+        need = lib.schur_cg_smem_bytes(width, stages, n_cams, int(x_smem), int(h_smem))
+        if need < 0:
+            raise ValueError(f"schur_cg: no kernel for cameras of width {width} (6 or 9)")
+        return need <= optin
 
     for stages in (3, 2):
         if fits(stages, True, True):
@@ -211,8 +227,8 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 class CGState(NamedTuple):
-    """The CG's vectors on the card: x, r, z, p, Sp [C,6], rz [1], the
-    reduce's dot partials of p.Sp, Minv [C,6,6] (contiguous)."""
+    """The CG's vectors on the card: x, r, z, p, Sp [C,D], rz [1], the
+    reduce's dot partials of p.Sp, Minv [C,D,D] (contiguous)."""
 
     x: torch.Tensor
     r: torch.Tensor
@@ -225,7 +241,7 @@ class CGState(NamedTuple):
 
 
 class SchurProducts:
-    """The CG's products over A [O,6,3] on the card for one solve, V^-1
+    """The CG's products over A [O,D,3] on the card for one solve, V^-1
     [P,3,3] and the camera mask [C,1] (1 free, 0 fixed) fixed, over a
     point-major layout built here. CUDA tensors only."""
 
@@ -235,14 +251,16 @@ class SchurProducts:
             raise ValueError(f"schur_cg: the kernel takes CUDA tensors, got {A.device} "
                              "(CPU tensors take wt_x_plain and w_z_plain)")
         self.n_cams, self.n_pts = n_cams, n_pts
+        self.width = D = A.shape[1]
         self.device = A.device
         with torch.cuda.device(A.device):
-            self.acc, self.stages, self.x_smem = plan(n_cams, torch.are_deterministic_algorithms_enabled())
+            self.acc, self.stages, self.x_smem = plan(n_cams, torch.are_deterministic_algorithms_enabled(), D)
+        pad = copy_step(D)
         lay = point_layout(obs_cam, obs_pt, n_cams, n_pts, camera_runs=self.acc == "smem",
-                           ordered=self.acc == "ordered")
+                           ordered=self.acc == "ordered", pad=pad)
         self.layout = lay
         n_obs = obs_pt.shape[0]
-        self.A_pm = torch.empty((n_obs + 2, 6, 3), dtype=torch.float32, device=A.device)
+        self.A_pm = torch.empty((n_obs + pad, D, 3), dtype=torch.float32, device=A.device)
         torch.index_select(_f32(A), 0, lay.perm, out=self.A_pm[:n_obs])
         self.A_pm[n_obs:].zero_()
         # V^-1 [P+4, 9]: the kernel copies V^-1 4 points at a time
@@ -263,7 +281,7 @@ class SchurProducts:
         lib = _lib()
         with torch.cuda.device(self.device):
             rc = lib.schur_cg_pass_launch(
-                MODES[mode], ACCUMULATORS[self.acc], *self._lay_ptrs, _ptr(x), _ptr(mask),
+                self.width, MODES[mode], ACCUMULATORS[self.acc], *self._lay_ptrs, _ptr(x), _ptr(mask),
                 self.vinv_c.data_ptr(), _ptr(pin), _ptr(pout), _ptr(hout), self.n_cams, self.blocks,
                 self.stages, int(self.x_smem), self.stream)
         _build.check(lib, "schur_cg", rc)
@@ -271,23 +289,23 @@ class SchurProducts:
         profiler.count(f"ba.cg.pass.{self.acc}")
 
     def h_buffer(self) -> torch.Tensor:
-        """Where a pass puts h: block partials [blocks,C,6] (smem), h [C,6]
-        zeroed (global), or per observation [O,6] (ordered)."""
-        C = self.n_cams
+        """Where a pass puts h: block partials [blocks,C,D] (smem), h [C,D]
+        zeroed (global), or per observation [O,D] (ordered)."""
+        C, D = self.n_cams, self.width
         if self.acc == "smem":
-            return torch.empty((self.blocks, C, 6), dtype=torch.float32, device=self.device)
+            return torch.empty((self.blocks, C, D), dtype=torch.float32, device=self.device)
         if self.acc == "global":
-            return torch.zeros((C, 6), dtype=torch.float32, device=self.device)
-        return torch.empty((self.A_pm.shape[0] - 2, 6), dtype=torch.float32, device=self.device)
+            return torch.zeros((C, D), dtype=torch.float32, device=self.device)
+        return torch.empty((self.layout.perm.shape[0], D), dtype=torch.float32, device=self.device)
 
     def _reduce(self, parts: torch.Tensor, ordered=False, ud=None, x=None, base=None, mask=None,
                 dots=None, out=None) -> torch.Tensor:
         lay, lib = self.layout, _lib()
         if out is None:
-            out = torch.empty((self.n_cams, 6), dtype=torch.float32, device=self.device)
+            out = torch.empty((self.n_cams, self.width), dtype=torch.float32, device=self.device)
         nparts = parts.shape[0] if parts.dim() == 3 else 1
         with torch.cuda.device(self.device):
-            rc = lib.schur_cg_reduce_launch(int(ordered), parts.data_ptr(), nparts, _ptr(lay.cidx),
+            rc = lib.schur_cg_reduce_launch(self.width, int(ordered), parts.data_ptr(), nparts, _ptr(lay.cidx),
                                             _ptr(lay.coff), self.n_cams, _ptr(ud), _ptr(x), _ptr(base),
                                             _ptr(mask), out.data_ptr(), _ptr(dots), self.stream)
         _build.check(lib, "schur_cg", rc)
@@ -295,7 +313,7 @@ class SchurProducts:
 
     def _sums(self, hbuf: torch.Tensor) -> torch.Tensor:
         """What the finishing reduce sums: the block partials (smem), or h
-        [C,6] (global as it stands; ordered summed camera by camera)."""
+        [C,D] (global as it stands; ordered summed camera by camera)."""
         return self._reduce(hbuf, ordered=True) if self.acc == "ordered" else hbuf
 
     def _points(self) -> torch.Tensor:
@@ -304,7 +322,7 @@ class SchurProducts:
     # -------------------------------------------------------- products
 
     def smv(self, x: torch.Tensor, ud: torch.Tensor, cg: CGState | None = None) -> torch.Tensor:
-        """S x = mask * (Ud (x mask) - W V^-1 W^T (x mask)) [C,6] by one
+        """S x = mask * (Ud (x mask) - W V^-1 W^T (x mask)) [C,D] by one
         fused pass; with a CG state (x its p), into its Sp, with the dot
         partials of x.Sp."""
         x = _f32(x)
@@ -322,14 +340,14 @@ class SchurProducts:
         return g
 
     def w_vinv(self, g: torch.Tensor) -> torch.Tensor:
-        """h = W (V^-1 g) [C,6], unfinished."""
+        """h = W (V^-1 g) [C,D], unfinished."""
         hbuf = self.h_buffer()
         self.launch("hz", pin=_f32(g), hout=hbuf)
         h = self._sums(hbuf)
         return self._reduce(h) if h.dim() == 3 else h
 
     def finish(self, h: torch.Tensor, ud=None, x=None, base=None, cg: CGState | None = None) -> torch.Tensor:
-        """From h [C,6] (or a pass's block partials): S x = mask * (Ud (x
+        """From h [C,D] (or a pass's block partials): S x = mask * (Ud (x
         mask) - h) (ud and x, or a CG state whose p is x: into its Sp with
         the dot partials of x.Sp), or the right-hand side mask * (base - h)."""
         if cg is not None:
@@ -351,12 +369,12 @@ class SchurProducts:
     # -------------------------------------------------------- the CG's vector work
 
     def cg_start(self, rhs: torch.Tensor, minv: torch.Tensor) -> CGState:
-        """The CG from r = rhs [C,6]: x = 0, z = mask Minv r, p = z,
+        """The CG from r = rhs [C,D]: x = 0, z = mask Minv r, p = z,
         rz = r.z, in one launch."""
-        C = self.n_cams
-        cg = CGState(*(torch.empty((C, 6), dtype=torch.float32, device=self.device) for _ in range(5)),
+        C, D = self.n_cams, self.width
+        cg = CGState(*(torch.empty((C, D), dtype=torch.float32, device=self.device) for _ in range(5)),
                      rz=torch.empty(1, dtype=torch.float32, device=self.device),
-                     dots=torch.empty(max(1, _lib().schur_cg_reduce_blocks(C)), dtype=torch.float32,
+                     dots=torch.empty(max(1, _lib().schur_cg_reduce_blocks(D, C)), dtype=torch.float32,
                                       device=self.device),
                      minv=_f32(minv))
         cg.r.copy_(rhs)
@@ -371,7 +389,7 @@ class SchurProducts:
     def _update(self, step: int, cg: CGState) -> None:
         lib = _lib()
         with torch.cuda.device(self.device):
-            rc = lib.schur_cg_update_launch(step, self.n_cams, cg.sp.data_ptr(), cg.dots.data_ptr(),
+            rc = lib.schur_cg_update_launch(self.width, step, self.n_cams, cg.sp.data_ptr(), cg.dots.data_ptr(),
                                             cg.dots.shape[0], cg.minv.data_ptr(), self.mask_c.data_ptr(),
                                             cg.x.data_ptr(), cg.r.data_ptr(), cg.z.data_ptr(),
                                             cg.p.data_ptr(), cg.rz.data_ptr(), self.stream)

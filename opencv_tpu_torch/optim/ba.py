@@ -21,10 +21,16 @@ one one-block launch; under deterministic algorithms every sum takes a
 fixed order. CPU tensors take the plain version (einsum and index_add_)
 with the CG's vector work in PyTorch.
 
+Cameras are 6 parameters wide (rvec, t) with normalized observations, or,
+with `cam_intr`, 9 wide (rvec, t, f, k1, k2) with BAL's projection and
+observations in pixels; every block, solver and K6 pass takes the width D
+from the Jacobian's or U's last dimension.
+
 Spans and counters (utils/profiler.py, recorded while `OPENCV_TPU_TRACE`
 or `profiler.enable()` turns the recorder on): `ba.bundle_adjust` around
 a solve; `ba.step` around each LM step, inside it `ba.normal_eq` (the
-normal equations of either solver), `ba.schur` (the Schur solve) and
+normal equations of either solver, with `ba.jac` around the residuals and
+Jacobians of `_blocks` inside), `ba.schur` (the Schur solve) and
 `ba.update` (the candidate's cost, the accept test, the merge and the
 lambda update). Inside `ba.schur` of the CG solver: `ba.cg.wz` around
 the right-hand side's W V^-1 bp, `ba.cg.wtx` around the
@@ -53,8 +59,15 @@ from opencv_tpu_torch.utils import profiler
 
 class BAProblem(NamedTuple):
     """cam_rvec [C,3], cam_tvec [C,3] world->camera; points [P,3];
-    obs_cam [O] i64, obs_pt [O] i64, obs_uv [O,2] normalized coords,
-    obs_valid [O] bool; fixed_cams [C] bool (gauge)."""
+    obs_cam [O] i64, obs_pt [O] i64, obs_uv [O,2], obs_valid [O] bool;
+    fixed_cams [C] bool (gauge); cam_intr [C,3] or None.
+
+    Without `cam_intr` a camera is calibrated: uv = P.xy / P.z with
+    P = R X + t, and obs_uv holds normalized image coordinates. With it,
+    each camera also estimates its intrinsics (f, k1, k2), as BAL and
+    Bundler define them: p = -P.xy / P.z (the camera looks down -z),
+    pixel = f (1 + k1 |p|^2 + k2 |p|^4) p, and obs_uv holds pixels
+    measured from the principal point."""
 
     cam_rvec: torch.Tensor
     cam_tvec: torch.Tensor
@@ -64,6 +77,24 @@ class BAProblem(NamedTuple):
     obs_uv: torch.Tensor
     obs_valid: torch.Tensor
     fixed_cams: torch.Tensor
+    cam_intr: torch.Tensor | None = None
+
+
+def _fields_held(self: BAProblem) -> dict:
+    """The fields the problem holds: `cam_intr` left out where it is None,
+    so a calibrated problem's dict is its eight tensors, as before the
+    field existed (callers hand the dict to code that reads every value as
+    a tensor: the benchmark's plain references). The port itself compares
+    problems field by field, None with None."""
+    return {k: v for k, v in zip(self._fields, self) if v is not None}
+
+
+BAProblem._asdict = _fields_held  # NamedTuple forbids the override in the class body
+
+
+def camera_width(p: BAProblem) -> int:
+    """Parameters a camera estimates: 6, or 9 with intrinsics."""
+    return 6 if p.cam_intr is None else 6 + p.cam_intr.shape[-1]
 
 
 def _project(R, t, pts):
@@ -75,10 +106,22 @@ def _project(R, t, pts):
     return pc[:, :2] / zs[:, None], zs, guard
 
 
+def _distort(uv, intr):
+    """BAL's pixel of uv = P.xy / P.z, per observation's intrinsics intr
+    [O,3] = (f, k1, k2): (pixel, p = -uv, s = |p|^2, d = 1 + k1 s + k2 s^2)."""
+    p = -uv
+    s = (p * p).sum(-1)
+    f, k1, k2 = intr.unbind(-1)
+    d = 1.0 + s * (k1 + k2 * s)
+    return (f * d)[:, None] * p, p, s, d
+
+
 def residuals(p: BAProblem) -> torch.Tensor:
-    """[O,2] masked reprojection residuals."""
+    """[O,2] masked reprojection residuals (pixels with intrinsics)."""
     R = rodrigues(p.cam_rvec)
     uv, _, _ = _project(R[p.obs_cam], p.cam_tvec[p.obs_cam], p.points[p.obs_pt])
+    if p.cam_intr is not None:
+        uv = _distort(uv, p.cam_intr[p.obs_cam])[0]
     r = uv - p.obs_uv
     return torch.where(p.obs_valid[:, None], r, torch.zeros_like(r))
 
@@ -89,21 +132,39 @@ def cost(p: BAProblem) -> torch.Tensor:
 
 
 def _blocks(p: BAProblem, huber_delta: float | None):
-    """r [O,2], Jc [O,2,6], Jp [O,2,3], weighted (masked rows zero)."""
+    """r [O,2], Jc [O,2,D], Jp [O,2,3], weighted (masked rows zero). With
+    intrinsics, Jc's columns are (rvec, t, f, k1, k2) by the chain rule
+    through the distortion: d pixel / d p = f (d I + 2 d' p p^T) with
+    d' = k1 + 2 k2 s, and d pixel / d(f, k1, k2) = (d p, f s p, f s^2 p)."""
     R = rodrigues(p.cam_rvec)
     dR = rodrigues_jacobian(p.cam_rvec)  # [C,3,3,3]
     Ro = R[p.obs_cam]
     pts = p.points[p.obs_pt]
     uv, zs, guard = _project(Ro, p.cam_tvec[p.obs_cam], pts)
-    r = uv - p.obs_uv
+    if p.cam_intr is None:
+        r = uv - p.obs_uv
+    else:
+        intr = p.cam_intr[p.obs_cam]
+        pix, pn, s, d = _distort(uv, intr)
+        r = pix - p.obs_uv
     inv_z = 1.0 / zs
     zero = torch.zeros_like(zs)
     du_dz = torch.where(guard[:, None], torch.zeros_like(uv), -uv / zs[:, None])
     dproj = torch.stack(
         [torch.stack([inv_z, zero, du_dz[:, 0]], -1), torch.stack([zero, inv_z, du_dz[:, 1]], -1)], -2
-    )  # [O,2,3]
+    )  # [O,2,3]: d uv / d P
     dpc_dr = torch.einsum("oijk,oj->oik", dR[p.obs_cam], pts)
-    Jc = torch.cat([dproj @ dpc_dr, dproj], dim=-1)
+    if p.cam_intr is None:
+        Jc = torch.cat([dproj @ dpc_dr, dproj], dim=-1)
+    else:
+        f, k1, k2 = intr.unbind(-1)
+        pp = pn[:, :, None] * pn[:, None, :]
+        eye2 = torch.eye(2, dtype=uv.dtype, device=uv.device)
+        dpix_dp = f[:, None, None] * (d[:, None, None] * eye2 + (2.0 * (k1 + 2.0 * k2 * s))[:, None, None] * pp)
+        dproj = -(dpix_dp @ dproj)  # d pixel / d P, through p = -uv
+        fs = f * s
+        dintr = torch.stack([d[:, None] * pn, fs[:, None] * pn, (fs * s)[:, None] * pn], -1)
+        Jc = torch.cat([dproj @ dpc_dr, dproj, dintr], dim=-1)
     Jp = dproj @ Ro
     w = p.obs_valid.to(r.dtype)
     if huber_delta is not None:
@@ -120,7 +181,7 @@ class BAStepState(NamedTuple):
 
 
 class NormalEqs(NamedTuple):
-    """U [C,6,6], V [P,3,3], bc [C,6], bp [P,3]; A [O,6,3] = Jc^T Jp."""
+    """U [C,D,D], V [P,3,3], bc [C,D], bp [P,3]; A [O,D,3] = Jc^T Jp."""
 
     U: torch.Tensor
     V: torch.Tensor
@@ -134,13 +195,15 @@ def normal_equations(p: BAProblem, huber_delta: float | None = None) -> NormalEq
     C = p.cam_rvec.shape[0]
     P = p.points.shape[0]
     dev = p.points.device
-    r, Jc, Jp = _blocks(p, huber_delta)
+    with profiler.profile_region("ba.jac", dev):
+        r, Jc, Jp = _blocks(p, huber_delta)
+    D = Jc.shape[-1]
     f32 = torch.float32
-    U = torch.zeros((C, 6, 6), dtype=f32, device=dev).index_add_(
+    U = torch.zeros((C, D, D), dtype=f32, device=dev).index_add_(
         0, p.obs_cam, torch.einsum("oij,oik->ojk", Jc, Jc))
     V = torch.zeros((P, 3, 3), dtype=f32, device=dev).index_add_(
         0, p.obs_pt, torch.einsum("oij,oik->ojk", Jp, Jp))
-    bc = torch.zeros((C, 6), dtype=f32, device=dev).index_add_(
+    bc = torch.zeros((C, D), dtype=f32, device=dev).index_add_(
         0, p.obs_cam, -torch.einsum("oij,oi->oj", Jc, r))
     bp = torch.zeros((P, 3), dtype=f32, device=dev).index_add_(
         0, p.obs_pt, -torch.einsum("oij,oi->oj", Jp, r))
@@ -149,25 +212,26 @@ def normal_equations(p: BAProblem, huber_delta: float | None = None) -> NormalEq
 
 
 def schur_normal_equations(p: BAProblem, huber_delta: float | None = None):
-    """(U, V, W [C,P,6,3], bc, bp) with W materialized."""
+    """(U, V, W [C,P,D,3], bc, bp) with W materialized."""
     C = p.cam_rvec.shape[0]
     P = p.points.shape[0]
     eqs = normal_equations(p, huber_delta)
-    W = torch.zeros((C * P, 6, 3), dtype=torch.float32, device=p.points.device)
+    D = eqs.A.shape[1]
+    W = torch.zeros((C * P, D, 3), dtype=torch.float32, device=p.points.device)
     W.index_add_(0, p.obs_cam * P + p.obs_pt, eqs.A)
-    return eqs.U, eqs.V, W.reshape(C, P, 6, 3), eqs.bc, eqs.bp
+    return eqs.U, eqs.V, W.reshape(C, P, D, 3), eqs.bc, eqs.bp
 
 
 def schur_solve(U, V, W, bc, bp, lam, fixed_cams):
     """Exact damped solve via the explicit Schur complement on cameras,
     S = U - W V^-1 W^T, then point back-substitution. Fixed cameras get a
     huge diagonal and a zeroed update."""
-    C = U.shape[0]
+    C, D = U.shape[0], U.shape[-1]
     dev = U.device
-    eye6 = torch.eye(6, dtype=U.dtype, device=dev)
+    eyeD = torch.eye(D, dtype=U.dtype, device=dev)
     eye3 = torch.eye(3, dtype=U.dtype, device=dev)
-    big = torch.where(fixed_cams, 1e12, 0.0)[:, None, None] * eye6[None]
-    Ud = U + lam * eye6[None] + big
+    big = torch.where(fixed_cams, 1e12, 0.0)[:, None, None] * eyeD[None]
+    Ud = U + lam * eyeD[None] + big
     Vd = V + lam * eye3[None]
     Vinv = torch.linalg.inv_ex(Vd)[0]
     Y = torch.einsum("cpij,pjk->cpik", W, Vinv)
@@ -175,7 +239,7 @@ def schur_solve(U, V, W, bc, bp, lam, fixed_cams):
     idx = torch.arange(C, device=dev)
     S[idx, :, idx, :] += Ud
     rhs = bc - torch.einsum("cpik,pk->ci", Y, bp)
-    dc = torch.linalg.solve_ex(S.reshape(6 * C, 6 * C), rhs.reshape(6 * C, 1))[0].reshape(C, 6)
+    dc = torch.linalg.solve_ex(S.reshape(D * C, D * C), rhs.reshape(D * C, 1))[0].reshape(C, D)
     dc = torch.where(fixed_cams[:, None], torch.zeros_like(dc), dc)
     tmp = bp - torch.einsum("cpij,ci->pj", W, dc)
     dp = torch.einsum("pij,pj->pi", Vinv, tmp)
@@ -193,16 +257,16 @@ def schur_cg_solve(eqs: NormalEqs, obs_cam, obs_pt, lam, fixed_cams, cg_iters: i
 
     With a process `group` (the JAX package's `psum_axis`), A, obs_cam and
     obs_pt are this rank's block of observations, and the [P,3] result of
-    W^T x and the [C,6] result of W z are all-reduced over the group: the
+    W^T x and the [C,D] result of W z are all-reduced over the group: the
     whole of the solver's collective traffic. Everything else runs on
     vectors every rank holds alike, and S p runs as its two halves."""
     C = eqs.U.shape[0]
     P_pts = eqs.V.shape[0]
     A = eqs.A
     dev = A.device
-    eye6 = torch.eye(6, dtype=eqs.U.dtype, device=dev)
+    eyeD = torch.eye(eqs.U.shape[-1], dtype=eqs.U.dtype, device=dev)
     eye3 = torch.eye(3, dtype=eqs.V.dtype, device=dev)
-    Ud = eqs.U + lam * eye6[None]
+    Ud = eqs.U + lam * eyeD[None]
     Vd = eqs.V + lam * eye3[None]
     Vinv = torch.linalg.inv_ex(Vd)[0]
     Minv = torch.linalg.inv_ex(Ud)[0]
@@ -294,13 +358,28 @@ def _cg_on_card(k: schur_cg.SchurProducts, eqs: NormalEqs, Ud, Minv, mask, cg_it
 
 
 def _resolve_solver(solver: str, p: BAProblem) -> str:
-    """'auto' -> 'dense' when W [C,P,6,3] fits in 128 MB, else 'cg'
+    """'auto' -> 'dense' when W [C,P,D,3] fits in 128 MB, else 'cg'
     (the JAX package's rule)."""
     if solver != "auto":
         return solver
     C = p.cam_rvec.shape[0]
     P = p.points.shape[0]
-    return "dense" if C * P * 72 <= 128 * 1024 * 1024 else "cg"
+    return "dense" if C * P * 12 * camera_width(p) <= 128 * 1024 * 1024 else "cg"
+
+
+def candidate(p: BAProblem, dc: torch.Tensor, dp: torch.Tensor) -> BAProblem:
+    """The LM step's candidate: dc [C,D] split as rvec, t and, where the
+    cameras have them, intrinsics; points moved by dp [P,3]."""
+    new = dict(cam_rvec=p.cam_rvec + dc[:, :3], cam_tvec=p.cam_tvec + dc[:, 3:6], points=p.points + dp)
+    if p.cam_intr is not None:
+        new["cam_intr"] = p.cam_intr + dc[:, 6:]
+    return p._replace(**new)
+
+
+def merge(accept: torch.Tensor, p: BAProblem, new: BAProblem) -> BAProblem:
+    """Each field of `new` where the step is accepted, of `p` where it is
+    not; a field that is None in `p` stays None."""
+    return BAProblem(*[a if a is None else torch.where(accept, b, a) for a, b in zip(p, new)])
 
 
 def ba_step(state: BAStepState, huber_delta: float | None = None, solver: str = "auto",
@@ -322,12 +401,10 @@ def ba_step(state: BAStepState, huber_delta: float | None = None, solver: str = 
             with profiler.profile_region("ba.schur", dev):
                 dc, dp = schur_solve(U, V, W, bc, bp, state.lam, p.fixed_cams)
         with profiler.profile_region("ba.update", dev):
-            new_p = p._replace(
-                cam_rvec=p.cam_rvec + dc[:, :3], cam_tvec=p.cam_tvec + dc[:, 3:], points=p.points + dp
-            )
+            new_p = candidate(p, dc, dp)
             c_new = cost(new_p)
             accept = (c_new < state.cost) & torch.isfinite(c_new)
-            merged = BAProblem(*[torch.where(accept, b, a) for a, b in zip(p, new_p)])
+            merged = merge(accept, p, new_p)
             lam = torch.where(accept, state.lam / 3.0, state.lam * 4.0).clamp(1e-10, 1e10)
             return BAStepState(
                 problem=merged, lam=lam, cost=torch.where(accept, c_new, state.cost),

@@ -6,10 +6,10 @@ its own block of observations (`mesh.shard_leading(mesh, axes)`): the
 contract of the JAX package's `shard_map`. Nothing observation-sized
 crosses between ranks:
 
-  * per LM step, U [C,6,6], V [P,3,3], bc [C,6], bp [P,3] and the new
+  * per LM step, U [C,D,D], V [P,3,3], bc [C,D], bp [P,3] and the new
     cost are all-reduced over the ranks of `axes` (JAX's psum);
   * the per-observation blocks A = Jc^T Jp stay on their rank;
-  * each CG iteration all-reduces one [P,3] and one [C,6] partial sum
+  * each CG iteration all-reduces one [P,3] and one [C,D] partial sum
     (optim/ba.py `schur_cg_solve(group=...)`).
 
 Every rank then holds the same bits of every reduced tensor, so all take
@@ -70,17 +70,11 @@ def ba_step_sharded(state: ba.BAStepState, mesh: DeviceMesh, huber_delta: float 
     eqs = _assemble(local, huber_delta, group)
     dc, dp = ba.schur_cg_solve(eqs, local.obs_cam, local.obs_pt, state.lam, p.fixed_cams,
                                cg_iters, group=group)
-    new_local = local._replace(cam_rvec=p.cam_rvec + dc[:, :3], cam_tvec=p.cam_tvec + dc[:, 3:],
-                               points=p.points + dp)
-    c_new = _summed(ba.cost(new_local), group)
+    cand = ba.candidate(p, dc, dp)
+    c_new = _summed(ba.cost(_local(cand, mesh, axes)), group)
     accept = (c_new < state.cost) & torch.isfinite(c_new)
-    new_p = p._replace(
-        cam_rvec=torch.where(accept, new_local.cam_rvec, p.cam_rvec),
-        cam_tvec=torch.where(accept, new_local.cam_tvec, p.cam_tvec),
-        points=torch.where(accept, new_local.points, p.points),
-    )
     lam = torch.where(accept, state.lam / 3.0, state.lam * 4.0).clamp(1e-10, 1e10)
-    return ba.BAStepState(problem=new_p, lam=lam, cost=torch.where(accept, c_new, state.cost),
+    return ba.BAStepState(problem=ba.merge(accept, p, cand), lam=lam, cost=torch.where(accept, c_new, state.cost),
                           n_accepted=state.n_accepted + accept.to(torch.int32))
 
 

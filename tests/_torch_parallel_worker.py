@@ -27,7 +27,7 @@ HC = (multihost.HOST_AXIS, multihost.CHIP_AXIS)
 
 
 def _problem(x):
-    return convert.ba_problem({f: x["ba_" + f] for f in ba.BAProblem._fields}, device="cpu")
+    return convert.ba_problem({f: x["ba_" + f] for f in ba.BAProblem._fields if "ba_" + f in x}, device="cpu")
 
 
 def _solved(prefix, out):

@@ -27,8 +27,10 @@ the single-device solver, the map-sharded 2-NN through K3) and two gloo
 ranks sharing the card; ORB's BRIEF, gathered and binned, on the card
 against the CPU; and K6 (csrc/schur_cg.cu: the Schur-CG point pass, its
 camera reduce and its CG update) against its plain version at the
-benchmark cells' widths and on shuffled, ragged and large maps, its
-fixed summation orders run to run, and its launches in a CG solve.
+benchmark cells' sizes and camera widths (6, and BAL's 9) and on
+shuffled, ragged and large maps, its route by width, its fixed summation
+orders run to run, its launches in a CG solve, and BAL's cameras through
+bundle_adjust on the card against the float64 reference.
 
 This file imports neither jax nor the JAX package, so that it runs on a
 machine that has only PyTorch:
@@ -1617,8 +1619,8 @@ def test_sharded_ba_world1_nccl_equals_single_device(card, nccl_world1):
         torch.use_deterministic_algorithms(False)
     assert float(cs) < 1e-2 * float(ba.cost(p))
     assert torch.equal(cs, c1)
-    for a, b in zip(sharded, single):
-        assert torch.equal(a, b)
+    for f, a, b in zip(ba.BAProblem._fields, sharded, single):
+        assert a is b is None or torch.equal(a, b), f
 
 
 @pytest.mark.cuda
@@ -1735,6 +1737,7 @@ def _card_median_ms(fn, reps=5):
 def test_ba_spans_on_the_card(card, tmp_path):
     """The recorder's spans of the CG solve on the card: each root's device
     time covered by its LM steps and each step's by its three parts (98 %),
+    `ba.jac` inside each step's `ba.normal_eq`,
     the normal equations' and the Schur solve's span time a step within
     5 % of CUDA-event replicas at the start, no synchronization or copy to
     the host inside a solve with the recorder on, and the same kernels with
@@ -1766,6 +1769,10 @@ def test_ba_spans_on_the_card(card, tmp_path):
     children: dict = {}
     for s in spans:
         children.setdefault(s["parent"], []).append(s)
+    by_id = {s["id"]: s for s in spans}
+    jac = [s for s in spans if s["name"] == "ba.jac"]
+    assert len(jac) == iters and all(by_id[s["parent"]]["name"] == "ba.normal_eq" for s in jac)
+    assert all(0 < s["device_ms"] < by_id[s["parent"]]["device_ms"] for s in jac)
     for s in spans:
         if s["name"] in ("ba.bundle_adjust", "ba.step"):
             covered = sum(c["device_ms"] for c in children[s["id"]])
@@ -1798,12 +1805,13 @@ def test_ba_spans_on_the_card(card, tmp_path):
 
 
 def _schur_inputs(card, n_cams, n_pts, n_obs, seed=0, shuffled=False, empty_pts=0, empty_cams=0,
-                  long_track=0):
-    """Random CG inputs on an observation set of tracks: each point with
-    observations seen by a run of 3 or more consecutive cameras (mean
-    n_obs / points), `empty_pts` points and the last `empty_cams` cameras
-    seen by none, one point seen by `long_track` cameras; observations
-    point by point, or shuffled. Cameras 0 and 1 fixed."""
+                  long_track=0, width=6):
+    """Random CG inputs for cameras of `width` parameters on an
+    observation set of tracks: each point with observations seen by a run
+    of 3 or more consecutive cameras (mean n_obs / points), `empty_pts`
+    points and the last `empty_cams` cameras seen by none, one point seen
+    by `long_track` cameras; observations point by point, or shuffled.
+    Cameras 0 and 1 fixed."""
     rng = np.random.default_rng(seed)
     seen = np.sort(rng.permutation(n_pts)[: n_pts - empty_pts])
     cams = n_cams - empty_cams
@@ -1825,14 +1833,15 @@ def _schur_inputs(card, n_cams, n_pts, n_obs, seed=0, shuffled=False, empty_pts=
     g = torch.Generator(device=card)
     g.manual_seed(seed)
     O = len(obs_pt)
+    D = width
     t = dict(
-        A=torch.randn((O, 6, 3), generator=g, device=card),
+        A=torch.randn((O, D, 3), generator=g, device=card),
         obs_cam=torch.from_numpy(obs_cam).to(card), obs_pt=torch.from_numpy(obs_pt).to(card),
         vinv=torch.randn((n_pts, 3, 3), generator=g, device=card),
         mask=torch.where(torch.arange(n_cams, device=card) < 2, 0.0, 1.0)[:, None],
-        x=torch.randn((n_cams, 6), generator=g, device=card),
-        ud=torch.randn((n_cams, 6, 6), generator=g, device=card),
-        bc=torch.randn((n_cams, 6), generator=g, device=card),
+        x=torch.randn((n_cams, D), generator=g, device=card),
+        ud=torch.randn((n_cams, D, D), generator=g, device=card),
+        bc=torch.randn((n_cams, D), generator=g, device=card),
         bp=torch.randn((n_pts, 3), generator=g, device=card),
     )
     return t, n_cams, n_pts
@@ -1894,7 +1903,21 @@ SCHUR_CASES = {
     "long_tracks": dict(n_cams=3000, n_pts=20_000, n_obs=200_000, long_track=2_500, shuffled=True, seed=3),
     "global_accumulator": dict(n_cams=5000, n_pts=100_000, n_obs=800_000, seed=4),
     "tiny": dict(n_cams=7, n_pts=40, n_obs=150, empty_pts=3, seed=5),
+    # BAL's 9-wide cameras: A rows of 108 B, copies from every fourth row
+    "bal_smem": dict(n_cams=500, n_pts=100_000, n_obs=500_000, seed=6, width=9),
+    "bal_smem_shuffled_ragged": dict(n_cams=300, n_pts=50_000, n_obs=300_001, empty_pts=5_000, empty_cams=20,
+                                     long_track=700, shuffled=True, seed=7, width=9),
+    "bal_global_venice_cameras": dict(n_cams=1778, n_pts=200_000, n_obs=1_000_003, shuffled=True, seed=8, width=9),
+    "bal_tiny": dict(n_cams=7, n_pts=40, n_obs=151, empty_pts=3, seed=9, width=9),
 }
+
+
+def _expected_acc(case, deterministic=False):
+    """K6's route for a case: x and h in shared memory up to ~2 360 cameras
+    at width 6 and ~960 at width 9."""
+    c = SCHUR_CASES[case]
+    over = c["n_cams"] >= (3000 if c.get("width", 6) == 6 else 1000)
+    return ("ordered" if deterministic else "global") if over else "smem"
 
 
 @pytest.mark.cuda
@@ -1902,7 +1925,8 @@ SCHUR_CASES = {
 def test_schur_cg_kernel_equals_plain(card, case):
     """Every entry of the point pass (S p fused, the right-hand side, the
     back-substitution, W^T x, W V^-1 g) against the plain version, with
-    fixed cameras; C = 3000 and 5000 take the global accumulator. The
+    fixed cameras, at width 6 and BAL's 9; C = 3000 and 5000 at width 6
+    and 1 778 at width 9 take the global accumulator. The
     back-substitution by the halves gives the fused pass's bits, and so
     does S p where h is not summed by atomics. The shared-memory
     accumulator sums in a fixed order: the same bits twice."""
@@ -1911,8 +1935,9 @@ def test_schur_cg_kernel_equals_plain(card, case):
     t, C, P = _schur_inputs(card, **SCHUR_CASES[case])
     got, halves, prods = _schur_kernel(t, C, P)
     assert set(got) == {"wt_x", "w_vinv", "smv", "rhs", "back"}
-    assert prods.acc == ("global" if C >= 3000 else "smem")
-    assert prods.acc == schur_cg.plan(C, False)[0]
+    assert prods.width == SCHUR_CASES[case].get("width", 6) and got["smv"].shape == t["x"].shape
+    assert prods.acc == _expected_acc(case)
+    assert prods.acc == schur_cg.plan(C, False, prods.width)[0]
     _assert_schur_close(got, _schur_plain(t, C, P))
     assert bool((got["smv"][:2] == 0).all()) and bool((got["rhs"][:2] == 0).all())
     assert torch.equal(halves["back"], got["back"])
@@ -1924,7 +1949,8 @@ def test_schur_cg_kernel_equals_plain(card, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["kitti07_width", "long_tracks", "empty_points_and_cameras"])
+@pytest.mark.parametrize("case", ["kitti07_width", "long_tracks", "empty_points_and_cameras", "bal_smem",
+                                  "bal_global_venice_cameras"])
 def test_schur_cg_deterministic_is_bit_stable(card, case):
     """Under deterministic algorithms every sum takes a fixed order (h by
     camera runs in shared memory, or, where it does not fit, per
@@ -1939,12 +1965,73 @@ def test_schur_cg_deterministic_is_bit_stable(card, case):
         again, _, _ = _schur_kernel(t, C, P)
     finally:
         torch.use_deterministic_algorithms(False)
-    assert prods.acc == ("ordered" if C >= 3000 else "smem") == schur_cg.plan(C, True)[0]
+    assert prods.acc == _expected_acc(case, deterministic=True) == schur_cg.plan(C, True, prods.width)[0]
     for k in first:
         assert torch.equal(first[k], again[k]), k
     for k in halves:
         assert torch.equal(halves[k], first[k]), k
     _assert_schur_close(first, _schur_plain(t, C, P))
+
+
+@pytest.mark.cuda
+def test_schur_cg_plan_by_camera_width(card):
+    """plan() decides by the camera's width: Venice's 1 778 cameras of 9
+    parameters take the global accumulator (ordered under deterministic
+    algorithms, x through L1), KITTI 00's 2 000 cameras of 6 shared memory
+    with two stages; a width the kernel lacks is refused."""
+    from opencv_tpu_torch.ops.cuda import schur_cg
+
+    assert schur_cg.plan(1778, False, 9) == ("global", 3, False)
+    assert schur_cg.plan(1778, True, 9) == ("ordered", 3, False)
+    assert schur_cg.plan(2000, False, 6) == ("smem", 2, True)
+    assert schur_cg.plan(900, False, 9)[0] == "smem"
+    with pytest.raises(ValueError):
+        schur_cg.plan(100, False, 7)
+
+
+@pytest.mark.cuda
+def test_bal_bundle_adjust_on_the_card(card):
+    """BAL's 9-parameter cameras through bundle_adjust's CG solver on the
+    card (K6 at width 9, every pass by global atomics at 1 200 cameras, the
+    Venice configuration's layout at a quarter of its cameras) against the
+    float64 reference (portbench/reference/ba_bal.py, run on the card): the cost
+    within 1e-4 of the reference's and every residual within 0.05 px of
+    the reference solution's (the float32 CG's 60 iterations in another
+    summation order; the TF32 control reads 2e-2 and 5 px on the CPU at
+    300 cameras)."""
+    import json
+    from pathlib import Path
+
+    from portbench import generate_bal
+    from portbench.reference import ba_bal as ref
+
+    from opencv_tpu_torch.optim import ba
+    from opencv_tpu_torch.utils import profiler
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "portbench" / "configs" / "bal-venice-1778.json").read_text())
+    cfg["problems"] = {"p": {"cameras": 1200, "points": 150_000, "observations": 754_500}}
+    fields = generate_bal.make_problem(cfg, {"problem": "p"}, 2**31 + 11, card)
+    kw = dict(iters=10, lambda0=1e-4, huber_delta=None, cg_iters=60)
+    cuda_ops.reset_launch_counts()
+    profiler.reset()
+    profiler.enable(True)
+    try:
+        q, c = ba.bundle_adjust(ba.BAProblem(**fields), solver="cg", **kw)
+        torch.cuda.synchronize()
+        counters = profiler.counters()
+    finally:
+        profiler.enable(False)
+        profiler.reset()
+    assert counters["ba.cg.pass.global"] == kw["iters"] * (kw["cg_iters"] + 2)
+    assert cuda_ops.launch_counts["schur_cg_full"] == kw["iters"] * kw["cg_iters"]
+    out = ref.bundle_adjust(fields, **kw)
+    f64 = {k: (v.double() if v.is_floating_point() else v) for k, v in fields.items()}
+    r_ref = ref.residuals(dict(f64, **dict(zip(ref.SOLVED, out[:-1]))), ref.Arith())
+    r = ref.residuals(dict(f64, **{f: getattr(q, f).double() for f in ref.SOLVED}), ref.Arith())
+    assert float(out[-1]) < 0.5 * float(ref.cost(f64, ref.Arith()))
+    assert abs(float(c) - float(out[-1])) <= 1e-4 * float(out[-1])
+    assert float((r - r_ref).abs().max()) <= 0.05
 
 
 @pytest.mark.cuda

@@ -87,6 +87,18 @@ def test_point_layout_against_numpy(kind):
     assert plain.cs is None and plain.cidx is None and plain.coff is None
 
 
+@pytest.mark.parametrize("width,pad", [(6, 2), (9, 4)])
+def test_copy_step_pads_the_index_pairs(width, pad):
+    """The kernel's copies of A start at a 16-byte boundary: every 2nd row
+    of 72 B, every 4th of 108 B; the index pairs take as many rows of
+    padding (zeros) past the last observation."""
+    obs_cam, obs_pt, C, P = _observations("shuffled")
+    O = len(obs_pt)
+    assert schur_cg.copy_step(width) == pad and (pad * 12 * width) % 16 == 0
+    lay = schur_cg.point_layout(torch.from_numpy(obs_cam), torch.from_numpy(obs_pt), C, P, pad=pad)
+    assert lay.idx.shape == (O + pad, 2) and bool((lay.idx[O:] == 0).all())
+
+
 def test_point_layout_without_observations():
     none = torch.zeros(0, dtype=torch.int64)
     lay = schur_cg.point_layout(none, none, 5, 9, camera_runs=True, ordered=True)
