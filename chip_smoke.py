@@ -31,7 +31,12 @@ Phases:
      9-wide ones on the global-atomics route) on the CG's own inputs,
      every product and the group's halves
      within K6_RTOL of the plain version (k6_cell), timed beside the plain
-     S p, the einsums alone and its byte bound;
+     S p, the einsums alone and its byte bound; K7, the normal equations
+     in one pass, at the same start problems (k7_cell: U, V, bc, bp and A
+     against the plain version in float64, within K6_RTOL or twice the
+     plain version's own distance in float32; its camera table against
+     `rodrigues` and `rodrigues_jacobian`), timed beside the plain normal
+     equations, the five einsums alone and its byte bound;
   4. the twenty-seven paths, each cold, then warm WARM_RUNS times (once;
      twice with --measure, and then "the median" is of two), with the
      launch counts reset just before each warm run and read just after it:
@@ -268,6 +273,9 @@ K6_CELLS = ("ba.kitti07.cg", "ba.kitti00.cg", "ba.venice.cg")
 K6_SEED = 2147483649
 K6_RTOL = 1e-4
 K6_LAUNCH_KEYS = ("schur_cg_full", "schur_cg_hz", "schur_cg_back", "schur_cg_g", "schur_cg_update")
+# K7, the normal equations in one pass, at the same start problems and
+# tolerance (against the plain version in float64)
+K7_LAUNCH_KEYS = ("normal_eq_smem", "normal_eq_global", "normal_eq_ordered")
 
 
 def fail(msg: str) -> None:
@@ -559,6 +567,7 @@ def phase_kernels(frame0: np.ndarray, rates: dict) -> dict:
     phase_kernels_slice8(lvl0, rates, rows)
     rows.update(phase_lk_kernels(lvl0, rates))
     rows["schur_cg"] = phase_k6_kernel()
+    rows["normal_eq"] = phase_k7_kernel()
     return rows
 
 
@@ -693,6 +702,112 @@ def phase_k6_kernel() -> dict:
         plain_ms=first["ms"]["plain_smv"], library_ms=first["ms"]["library"], bound_ms=first["bound_ms"],
         bound_by="bytes", shapes=[(c["observations"], c["width"], 3) for c in cells.values()], cells=cells,
         launch_keys=K6_LAUNCH_KEYS)
+
+
+def k7_bound_bytes(n_obs: int, n_pts: int, width: int) -> int:
+    """The bytes the normal equations must move at a camera width D: an
+    observation's camera and point indices (16 B), uv (8 B) and mask (1 B)
+    read and A (12 D B) written; a point read (12 B) and its V and bp
+    written (48 B). The camera rows and U (a few hundred kB) are left out."""
+    return n_obs * (25 + 12 * width) + n_pts * 60
+
+
+def k7_cell(cell: str) -> dict:
+    """K7 at `cell`'s start problem (K6_SEED): U, V, bc, bp and A against
+    the plain version in float64 within K6_RTOL, or within twice the plain
+    version's own distance in float32 where that is larger (the f32
+    rotation's rounding times the map's coordinates reaches the residuals;
+    tests/test_torch_cuda.py `_assert_neq_close`); the camera table within
+    2e-6 of `rodrigues` and `rodrigues_jacobian` in float64; then device times: the
+    pass alone beside its byte bound, the whole card call (the per-camera
+    table, the pass, its reduce), the plain normal equations in float32
+    as the solver ran them before K7, and the five einsums alone (cuBLAS's
+    gemm and batched gemv) as the library yardstick."""
+    from pathlib import Path
+
+    import torch
+
+    from opencv_tpu_torch.device import no_tf32
+    from opencv_tpu_torch.geometry.rotation import rodrigues, rodrigues_jacobian
+    from opencv_tpu_torch.ops.cuda import normal_eq
+    from opencv_tpu_torch.optim import ba
+    from portbench.run import Cell
+
+    dev = torch.device("cuda")
+    bench = Cell(Path(REPO), cell)
+    p = ba.BAProblem(**bench.make_problem(K6_SEED, dev))
+    huber = bench.lm_settings()["huber_delta"]
+    C, P, O, D = p.cam_rvec.shape[0], p.points.shape[0], p.obs_cam.shape[0], ba.camera_width(p)
+    with no_tf32():
+        got = ba.normal_equations(p, huber)
+        want = ba.normal_equations_plain(p._replace(**{f: getattr(p, f).double() for f in (
+            "cam_rvec", "cam_tvec", "points", "obs_uv", "cam_intr") if getattr(p, f) is not None}), huber)
+        plain32 = ba.normal_equations_plain(p, huber)
+        torch.cuda.synchronize()
+        names = ("U", "V", "bc", "bp", "A")
+        rel = {n: float((g.double() - w).abs().max() / w.abs().max()) for n, g, w in zip(names, got, want)}
+        rel32 = {n: float((g.double() - w).abs().max() / w.abs().max()) for n, g, w in zip(names, plain32, want)}
+        abs_err = max_abs_err(*zip(got, want))
+        del want, plain32
+        ps = normal_eq.prepare(p.obs_cam, p.obs_pt, p.obs_uv, p.obs_valid, p.points, C, D, huber)
+        table = normal_eq.fill_table(ps, p.cam_rvec, p.cam_tvec, p.cam_intr)
+        r64 = p.cam_rvec.double()
+        table_err = float((table.double() - normal_eq.camera_table(
+            rodrigues(r64), rodrigues_jacobian(r64), p.cam_tvec.double(),
+            None if p.cam_intr is None else p.cam_intr.double())).abs().max())
+        r, Jc, Jp = ba._blocks(p, huber)
+
+        def einsums():
+            return (torch.einsum("oij,oik->ojk", Jc, Jc), torch.einsum("oij,oik->ojk", Jp, Jp),
+                    torch.einsum("oij,oi->oj", Jc, r), torch.einsum("oij,oi->oj", Jp, r),
+                    torch.einsum("oij,oik->ojk", Jc, Jp))
+
+        ms = {"pass": device_time_ms(lambda: normal_eq.launch(ps)),
+              "table": device_time_ms(lambda: normal_eq.fill_table(ps, p.cam_rvec, p.cam_tvec, p.cam_intr)),
+              "call": device_time_ms(lambda: ba.normal_equations(p, huber)),
+              "plain": device_time_ms(lambda: ba.normal_equations_plain(p, huber), calls=3),
+              "library": device_time_ms(einsums, calls=3)}
+        del r, Jc, Jp
+    bound_ms = 1e3 * k7_bound_bytes(O, P, D) / HBM_BYTES_PER_S
+    out = dict(cameras=C, points=P, observations=O, width=D, route=ps.route, ranges=ps.ranges, blocks=ps.blocks,
+               rel_err=rel, plain32_rel_err=rel32, table_err=table_err, max_abs_err=abs_err, ms=ms, bound_ms=bound_ms,
+               pass_of_bound_pct=100 * bound_ms / ms["pass"])
+    print(f"[K7] {cell}: {C} cameras of width {D}, {P} points, {O} observations, route {ps.route} "
+          f"({ps.ranges} camera ranges, {ps.blocks} observation parts); largest error of each output against the "
+          f"plain version in float64, over its largest entry: " + ", ".join(f"{n} {e:.2e}" for n, e in rel.items())
+          + f" (bound {K6_RTOL:g}, or twice the plain version's own in float32: "
+          + ", ".join(f"{n} {e:.2e}" for n, e in rel32.items()) + f"); the camera table {table_err:.2e} from "
+          f"rodrigues and rodrigues_jacobian's in float64; the pass {ms['pass']:.4f} ms = {out['pass_of_bound_pct']:.1f} % of "
+          f"its bound {bound_ms:.5f} ms (bytes), the table {ms['table']:.4f} ms, the card call {ms['call']:.4f} ms; "
+          f"plain (float32) "
+          f"{ms['plain']:.4f} ms, the five einsums alone (cuBLAS's gemm and batched gemv) {ms['library']:.4f} ms",
+          flush=True)
+    bad = [n for n, e in rel.items() if not e <= max(K6_RTOL, 2 * rel32[n])]
+    bad += ["table"] if not table_err <= 2e-6 else []
+    if bad:
+        fail(f"K7 at {cell}: {bad} (errors {rel}, the plain version's in float32 {rel32}, table {table_err})")
+    return out
+
+
+def phase_k7_kernel() -> dict:
+    """K7's row: k7_cell at every cell of K6_CELLS; the row's times are
+    kitti07's."""
+    import torch
+
+    cells = {}
+    for cell in K6_CELLS:
+        cells[cell] = k7_cell(cell)
+        torch.cuda.empty_cache()
+    first = cells["ba.kitti07.cg"]
+    return dict(
+        name="normal_eq (K7: BA's normal equations in one pass over the observations; camera reduce)",
+        route="cuda", source="opencv_tpu_torch/csrc/normal_eq.cu",
+        replaces="none: no Pallas kernel (the JAX package's XLA ops, einsums and segment-sums in "
+                 "opencv_tpu/optim/ba.py normal_equations)",
+        max_abs_err=max(c["max_abs_err"] for c in cells.values()), ms=first["ms"]["pass"],
+        plain_ms=first["ms"]["plain"], library_ms=first["ms"]["library"], bound_ms=first["bound_ms"],
+        bound_by="bytes", shapes=[(c["observations"], c["width"], 3) for c in cells.values()], cells=cells,
+        launch_keys=K7_LAUNCH_KEYS)
 
 
 def phase_kernels_slice8(lvl0, rates: dict, rows: dict) -> None:

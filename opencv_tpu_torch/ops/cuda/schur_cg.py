@@ -51,7 +51,7 @@ from typing import NamedTuple
 
 import torch
 
-from opencv_tpu_torch.ops import cuda as _counts
+from opencv_tpu_torch.ops import cuda as _cuda
 from opencv_tpu_torch.ops.cuda import _build
 from opencv_tpu_torch.utils import profiler
 
@@ -253,7 +253,7 @@ class SchurProducts:
         self.n_cams, self.n_pts = n_cams, n_pts
         self.width = D = A.shape[1]
         self.device = A.device
-        with torch.cuda.device(A.device):
+        with _cuda.on_device(A.device):
             self.acc, self.stages, self.x_smem = plan(n_cams, torch.are_deterministic_algorithms_enabled(), D)
         pad = copy_step(D)
         lay = point_layout(obs_cam, obs_pt, n_cams, n_pts, camera_runs=self.acc == "smem",
@@ -279,13 +279,13 @@ class SchurProducts:
         """One pass of the kernel in `mode` (MODES), its arrays as
         csrc/schur_cg.cu's Args has them; counted."""
         lib = _lib()
-        with torch.cuda.device(self.device):
+        with _cuda.on_device(self.device):
             rc = lib.schur_cg_pass_launch(
                 self.width, MODES[mode], ACCUMULATORS[self.acc], *self._lay_ptrs, _ptr(x), _ptr(mask),
                 self.vinv_c.data_ptr(), _ptr(pin), _ptr(pout), _ptr(hout), self.n_cams, self.blocks,
                 self.stages, int(self.x_smem), self.stream)
         _build.check(lib, "schur_cg", rc)
-        _counts.launch_counts[f"schur_cg_{mode}"] += 1
+        _cuda.launch_counts[f"schur_cg_{mode}"] += 1
         profiler.count(f"ba.cg.pass.{self.acc}")
 
     def h_buffer(self) -> torch.Tensor:
@@ -304,7 +304,7 @@ class SchurProducts:
         if out is None:
             out = torch.empty((self.n_cams, self.width), dtype=torch.float32, device=self.device)
         nparts = parts.shape[0] if parts.dim() == 3 else 1
-        with torch.cuda.device(self.device):
+        with _cuda.on_device(self.device):
             rc = lib.schur_cg_reduce_launch(self.width, int(ordered), parts.data_ptr(), nparts, _ptr(lay.cidx),
                                             _ptr(lay.coff), self.n_cams, _ptr(ud), _ptr(x), _ptr(base),
                                             _ptr(mask), out.data_ptr(), _ptr(dots), self.stream)
@@ -388,10 +388,10 @@ class SchurProducts:
 
     def _update(self, step: int, cg: CGState) -> None:
         lib = _lib()
-        with torch.cuda.device(self.device):
+        with _cuda.on_device(self.device):
             rc = lib.schur_cg_update_launch(self.width, step, self.n_cams, cg.sp.data_ptr(), cg.dots.data_ptr(),
                                             cg.dots.shape[0], cg.minv.data_ptr(), self.mask_c.data_ptr(),
                                             cg.x.data_ptr(), cg.r.data_ptr(), cg.z.data_ptr(),
                                             cg.p.data_ptr(), cg.rz.data_ptr(), self.stream)
         _build.check(lib, "schur_cg", rc)
-        _counts.launch_counts["schur_cg_update"] += 1
+        _cuda.launch_counts["schur_cg_update"] += 1

@@ -5,7 +5,14 @@ with the same `auto` rule, LM accept/reject schedule and Huber weights.
 Per-observation Jacobians are the chain rule through the projection with
 dR/drvec from torch.func.jacfwd of the guarded Rodrigues formula (once
 per camera, not per observation); tests hold them against
-torch.func.jacfwd of the whole residual. Block sums are `index_add_`.
+torch.func.jacfwd of the whole residual. On the card the normal
+equations are the hand-written kernel csrc/normal_eq.cu (K7,
+ops/cuda/normal_eq.py): a table of the cameras' R, t, dR/drvec (the
+closed form of the same guarded formula and its derivative) and
+intrinsics, then one pass over the observations that forms each one's
+residual, Jacobians and products in registers, writes A and sums U, bc,
+V and bp. CPU tensors take the plain version (`_blocks`, einsum and
+`index_add_`).
 All products run in f32 (the JAX package asks for HIGHEST precision;
 TF32 stays off: `device.no_tf32`). With a process group,
 `schur_cg_solve` all-reduces its two per-iteration products
@@ -28,9 +35,11 @@ from the Jacobian's or U's last dimension.
 
 Spans and counters (utils/profiler.py, recorded while `OPENCV_TPU_TRACE`
 or `profiler.enable()` turns the recorder on): `ba.bundle_adjust` around
-a solve; `ba.step` around each LM step, inside it `ba.normal_eq` (the
-normal equations of either solver, with `ba.jac` around the residuals and
-Jacobians of `_blocks` inside), `ba.schur` (the Schur solve) and
+a solve, inside it `ba.cost` around the start's cost and `ba.step` around
+each LM step, inside that `ba.normal_eq` (the
+normal equations of either solver, with `ba.jac` inside: on the card
+around K7's camera table (R and dR/drvec a camera), on the CPU around
+`_blocks`), `ba.schur` (the Schur solve) and
 `ba.update` (the candidate's cost, the accept test, the merge and the
 lambda update). Inside `ba.schur` of the CG solver: `ba.cg.wz` around
 the right-hand side's W V^-1 bp, `ba.cg.wtx` around the
@@ -39,8 +48,9 @@ S p; with a group, `ba.cg.wtx` and `ba.cg.wz` around S p's two halves
 in its place. No span holds an all-reduce. Counters: `ba.lm_steps` (steps
 attempted), `ba.lm_accepted` (the final `n_accepted` of each solve, read
 only when asked), and on the card `ba.cg.pass.smem`, `ba.cg.pass.global`
-or `ba.cg.pass.ordered`, one per kernel pass, by where the pass kept the
-camera sums (ops/cuda/schur_cg.py).
+or `ba.cg.pass.ordered`, one per K6 pass, by where the pass kept the
+camera sums (ops/cuda/schur_cg.py), and `ba.neq.pass.smem`, `.global` or
+`.ordered`, one per K7 pass, by its route (ops/cuda/normal_eq.py).
 """
 
 from __future__ import annotations
@@ -53,7 +63,7 @@ import torch.distributed as dist
 
 from opencv_tpu_torch.device import no_tf32
 from opencv_tpu_torch.geometry.rotation import rodrigues, rodrigues_jacobian
-from opencv_tpu_torch.ops.cuda import schur_cg
+from opencv_tpu_torch.ops.cuda import normal_eq, schur_cg
 from opencv_tpu_torch.utils import profiler
 
 
@@ -191,21 +201,38 @@ class NormalEqs(NamedTuple):
 
 
 def normal_equations(p: BAProblem, huber_delta: float | None = None) -> NormalEqs:
-    """Block normal equations in per-observation form."""
+    """Block normal equations in per-observation form: on the card K7's
+    camera table (R and dR/drvec a camera) and one K7 pass
+    (ops/cuda/normal_eq.py), on the CPU the plain version."""
+    dev = p.points.device
+    if dev.type != "cuda":
+        return normal_equations_plain(p, huber_delta)
+    ps = normal_eq.prepare(p.obs_cam, p.obs_pt, p.obs_uv, p.obs_valid, p.points, p.cam_rvec.shape[0],
+                           camera_width(p), huber_delta)
+    with profiler.profile_region("ba.jac", dev):
+        normal_eq.fill_table(ps, p.cam_rvec, p.cam_tvec, p.cam_intr)
+    normal_eq.launch(ps)
+    return NormalEqs(*normal_eq.finish(ps))
+
+
+def normal_equations_plain(p: BAProblem, huber_delta: float | None = None) -> NormalEqs:
+    """The plain version of `normal_equations`, on any device, in the
+    problem's precision: `_blocks`, then einsum and index_add_ per
+    observation."""
     C = p.cam_rvec.shape[0]
     P = p.points.shape[0]
     dev = p.points.device
     with profiler.profile_region("ba.jac", dev):
         r, Jc, Jp = _blocks(p, huber_delta)
     D = Jc.shape[-1]
-    f32 = torch.float32
-    U = torch.zeros((C, D, D), dtype=f32, device=dev).index_add_(
+    dt = r.dtype
+    U = torch.zeros((C, D, D), dtype=dt, device=dev).index_add_(
         0, p.obs_cam, torch.einsum("oij,oik->ojk", Jc, Jc))
-    V = torch.zeros((P, 3, 3), dtype=f32, device=dev).index_add_(
+    V = torch.zeros((P, 3, 3), dtype=dt, device=dev).index_add_(
         0, p.obs_pt, torch.einsum("oij,oik->ojk", Jp, Jp))
-    bc = torch.zeros((C, D), dtype=f32, device=dev).index_add_(
+    bc = torch.zeros((C, D), dtype=dt, device=dev).index_add_(
         0, p.obs_cam, -torch.einsum("oij,oi->oj", Jc, r))
-    bp = torch.zeros((P, 3), dtype=f32, device=dev).index_add_(
+    bp = torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
         0, p.obs_pt, -torch.einsum("oij,oi->oj", Jp, r))
     A = torch.einsum("oij,oik->ojk", Jc, Jp)
     return NormalEqs(U=U, V=V, bc=bc, bp=bp, A=A)
@@ -418,10 +445,12 @@ def bundle_adjust(p: BAProblem, iters: int = 20, lambda0: float = 1e-4,
     """Run `iters` LM steps. Returns (optimized problem, final cost)."""
     dev = p.points.device
     with profiler.profile_region("ba.bundle_adjust", dev), no_tf32():
+        with profiler.profile_region("ba.cost", dev):
+            c0 = cost(p)
         # filled on the device: a host tensor copied in would synchronize
         state = BAStepState(
             problem=p, lam=torch.full((), lambda0, dtype=torch.float32, device=dev),
-            cost=cost(p), n_accepted=torch.zeros((), dtype=torch.int32, device=dev),
+            cost=c0, n_accepted=torch.zeros((), dtype=torch.int32, device=dev),
         )
         for _ in range(iters):
             state = ba_step(state, huber_delta, solver=solver, cg_iters=cg_iters)

@@ -30,7 +30,11 @@ camera reduce and its CG update) against its plain version at the
 benchmark cells' sizes and camera widths (6, and BAL's 9) and on
 shuffled, ragged and large maps, its route by width, its fixed summation
 orders run to run, its launches in a CG solve, and BAL's cameras through
-bundle_adjust on the card against the float64 reference.
+bundle_adjust on the card against the float64 reference; and K7
+(csrc/normal_eq.cu: the normal equations in one pass over the
+observations) against the plain version in float64 at widths 6 and 9,
+on both routes, its fixed order under deterministic algorithms and its
+launches.
 
 This file imports neither jax nor the JAX package, so that it runs on a
 machine that has only PyTorch:
@@ -341,6 +345,8 @@ def test_gftt_on_card_equals_cpu(card):
 
 @pytest.mark.cuda
 def test_wrappers_count_launches(card):
+    from opencv_tpu_torch.optim import ba
+
     cuda_ops.reset_launch_counts()
     x = torch.zeros((32, 32), device=card)
     fast_kernel.fast_corners_cuda(x, 20.0)
@@ -354,11 +360,15 @@ def test_wrappers_count_launches(card):
     lk_sample.sample_windows(x, pts, 21)
     t, C, P = _schur_inputs(card, n_cams=7, n_pts=40, n_obs=150)
     _schur_kernel(t, C, P)
+    p, _ = _neq_problem(card, "tiny")
+    ba.normal_equations(p)
     torch.cuda.synchronize()
     assert cuda_ops.launch_counts == {"fast_corners": 2, "fast_score": 1, "knn2_hamming": 1,
                                       "lk_sample": 2, "lk_sample_clamp": 1, "schur_cg_full": 1,
                                       "schur_cg_hz": 2, "schur_cg_back": 2, "schur_cg_g": 1,
-                                      "schur_cg_update": 0}
+                                      "schur_cg_update": 0, "normal_eq_smem": 1, "normal_eq_global": 0,
+                                      "normal_eq_ordered": 0}
+
 
 
 # ------------------------------------------------ geometry, calibration, LSH
@@ -2039,7 +2049,8 @@ def test_schur_cg_launches_in_bundle_adjust(card):
     """A CG solve on the card goes through the point pass (one right-hand
     side, cg_iters fused products and one back-substitution a step, all
     with h in shared memory) and the one-block CG update (cg_iters + 1 a
-    step); a dense one does not."""
+    step); a dense one does not. Both form their normal equations by one
+    K7 pass a step."""
     import chip_smoke
 
     from opencv_tpu_torch import convert
@@ -2063,7 +2074,241 @@ def test_schur_cg_launches_in_bundle_adjust(card):
         "schur_cg_update": iters * (cg_iters + 1)}
     assert counters["ba.cg.pass.smem"] == iters * (cg_iters + 2)
     assert "ba.cg.pass.global" not in counters and "ba.cg.pass.ordered" not in counters
+    assert cuda_ops.launch_counts["normal_eq_smem"] == counters["ba.neq.pass.smem"] == iters
     cuda_ops.reset_launch_counts()
     ba.bundle_adjust(p, iters=iters, solver="dense")
     torch.cuda.synchronize()
-    assert all(v == 0 for v in cuda_ops.launch_counts.values())
+    assert all(v == 0 for k, v in cuda_ops.launch_counts.items() if k.startswith("schur_cg"))
+    assert cuda_ops.launch_counts["normal_eq_smem"] == iters
+
+
+# ------------------------------------------------ K7: the normal-equations pass
+
+# Each case: a problem (chip_smoke.ba_scene's 6-wide cameras, or the Venice
+# configuration's generator at BAL's width 9 with other counts), what is
+# done to it (observations shuffled, a fifth masked, a Huber weight, five
+# cameras and 500 points seen by none appended, camera 0 seeing `hot` more
+# points), and the route and camera ranges the plan takes on an H100.
+NEQ_CASES = {
+    "kitti07_width": dict(scene=dict(n_cams=1101, n_pts=275_250, views=8), route=("smem", 1)),
+    "kitti00_cameras": dict(scene=dict(n_cams=2000, n_pts=150_000, views=8), route=("smem", 1)),
+    "shuffled": dict(scene=dict(n_cams=1101, n_pts=100_000, views=8), shuffled=True, route=("smem", 1)),
+    "huber_masked": dict(scene=dict(n_cams=300, n_pts=50_000, views=6), huber=5e-3, masked=True,
+                         route=("smem", 1)),
+    "empty_cameras_and_points": dict(scene=dict(n_cams=200, n_pts=30_000, views=5), empty=True, route=("smem", 1)),
+    "hot_camera": dict(scene=dict(n_cams=500, n_pts=60_000, views=6), hot=50_000, route=("smem", 1)),
+    "hot_camera_shuffled_global": dict(scene=dict(n_cams=9000, n_pts=120_000, views=8), hot=40_000, shuffled=True,
+                                       route=("global", 1)),
+    "tiny": dict(scene=dict(n_cams=7, n_pts=40, views=3), route=("smem", 1)),
+    "bal": dict(bal=dict(cameras=600, points=80_000, observations=402_400), route=("smem", 1)),
+    "bal_venice_cameras": dict(bal=dict(cameras=1778, points=150_000, observations=754_500), huber=2.0, masked=True,
+                               shuffled=True, empty=True, route=("smem", 2)),
+    "bal_global": dict(bal=dict(cameras=4400, points=150_000, observations=754_500), hot=30_000,
+                       route=("global", 1)),
+}
+
+
+def _neq_problem(card, case):
+    """NEQ_CASES[case]'s problem on the card, and its Huber threshold."""
+    import json
+    from pathlib import Path
+
+    import chip_smoke
+
+    from opencv_tpu_torch import convert
+    from opencv_tpu_torch.optim import ba
+
+    c = NEQ_CASES[case]
+    if "bal" in c:
+        from portbench import generate_bal
+
+        root = Path(__file__).resolve().parents[1]
+        cfg = json.loads((root / "portbench" / "configs" / "bal-venice-1778.json").read_text())
+        cfg["problems"] = {"p": c["bal"]}
+        p = ba.BAProblem(**generate_bal.make_problem(cfg, {"problem": "p"}, 2**31 + 21, card))
+    else:
+        p = convert.ba_problem(chip_smoke.ba_scene(**c["scene"]), device=card)
+    g = torch.Generator(device=card)
+    g.manual_seed(21)
+    if c.get("hot"):
+        n = c["hot"]
+        extra = p._replace(obs_cam=torch.zeros(n, dtype=p.obs_cam.dtype, device=card),
+                           obs_pt=torch.arange(n, dtype=p.obs_pt.dtype, device=card),
+                           obs_uv=torch.zeros((n, 2), device=card), obs_valid=torch.ones(n, dtype=torch.bool, device=card))
+        uv = ba.residuals(extra) + 1e-3 * torch.randn((n, 2), generator=g, device=card)
+        p = p._replace(**{f: torch.cat([getattr(p, f), v]) for f, v in
+                          (("obs_cam", extra.obs_cam), ("obs_pt", extra.obs_pt), ("obs_uv", uv),
+                           ("obs_valid", extra.obs_valid))})
+    if c.get("empty"):
+        def grown(t, n):
+            return None if t is None else torch.cat([t, t[-1:].expand(n, *t.shape[1:])])
+
+        p = p._replace(cam_rvec=grown(p.cam_rvec, 5), cam_tvec=grown(p.cam_tvec, 5), cam_intr=grown(p.cam_intr, 5),
+                       fixed_cams=grown(p.fixed_cams, 5), points=grown(p.points, 500))
+    if c.get("masked"):
+        p = p._replace(obs_valid=p.obs_valid & (torch.rand(p.obs_valid.shape, generator=g, device=card) > 0.2))
+    if c.get("shuffled"):
+        order = torch.randperm(p.obs_cam.shape[0], generator=g, device=card)
+        p = p._replace(**{f: getattr(p, f)[order] for f in ("obs_cam", "obs_pt", "obs_uv", "obs_valid")})
+    return p, c.get("huber")
+
+
+def _neq_plain64(p, huber):
+    """The plain version in float64 on the card."""
+    from opencv_tpu_torch.optim import ba
+
+    return ba.normal_equations_plain(p._replace(**{f: getattr(p, f).double() for f in
+                                                   ("cam_rvec", "cam_tvec", "points", "obs_uv", "cam_intr")
+                                                   if getattr(p, f) is not None}), huber)
+
+
+def _assert_neq_close(got, want, plain32):
+    """K7 against the float64 plain version: each of U, V, bc, bp, A within
+    1e-4 of its largest entry (a missed or doubled observation moves an
+    entry of U, V or A by ~1e-3 of it or more), or, where the plain version
+    in float32 (`plain32`, the solver's code before K7) is itself farther
+    than that from float64, within twice its distance. The maps' cameras
+    and points lie 100-1 000 m from the origin and R X + t cancels to a
+    depth of 4-60 m, so the f32 rotation's and products' rounding reaches
+    every residual and Jacobian: the plain version in f32 reads up to 7e-4
+    of bc's largest entry and 1e-4 of A's, and two f32 evaluations differ
+    in which observation rounds worst (K7 read 1.6 times the plain
+    version's A at KITTI 00's start)."""
+    for name, g, w, g32 in zip(("U", "V", "bc", "bp", "A"), got, want, plain32):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        scale = float(w.abs().max())
+        err, err32 = (float((x.double() - w).abs().max()) for x in (g, g32))
+        assert err <= max(1e-4 * scale, 2 * err32), (name, err / scale, err32 / scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(NEQ_CASES))
+def test_normal_eq_kernel_equals_plain(card, case):
+    """K7 through `normal_equations` against the plain version in float64,
+    at widths 6 and 9, with Huber weights, masked, shuffled, unseen
+    cameras and points, a hot camera, on the shared-memory route (one
+    range, and Venice's 1 778 cameras of 9 in two) and the global one;
+    one pass a call; U symmetric bit for bit; the plan's shared memory is
+    the kernel's."""
+    from opencv_tpu_torch.ops.cuda import normal_eq
+    from opencv_tpu_torch.optim import ba
+
+    p, huber = _neq_problem(card, case)
+    C, D = p.cam_rvec.shape[0], ba.camera_width(p)
+    cuda_ops.reset_launch_counts()
+    got = ba.normal_equations(p, huber)
+    torch.cuda.synchronize()
+    rt, ranges = NEQ_CASES[case]["route"]
+    assert normal_eq.plan(C, D, False) == (rt, ranges)
+    assert {k: v for k, v in cuda_ops.launch_counts.items() if k.startswith("normal_eq")} == {
+        f"normal_eq_{r}": int(r == rt) for r in normal_eq.ROUTES}
+    assert normal_eq._lib().normal_eq_smem_bytes(D, 0, C, ranges) == normal_eq.smem_bytes(C, D, ranges)
+    assert torch.equal(got.U, got.U.transpose(1, 2))
+    _assert_neq_close(got, _neq_plain64(p, huber), ba.normal_equations_plain(p, huber))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["kitti07_width", "hot_camera", "bal_venice_cameras"])
+def test_normal_eq_deterministic_is_bit_stable(card, case):
+    """Under deterministic algorithms K7 takes the ordered route (terms
+    per observation, summed camera by camera and point by point in
+    observation order): two calls give the same bits, close to the plain
+    version."""
+    from opencv_tpu_torch.optim import ba
+
+    p, huber = _neq_problem(card, case)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cuda_ops.reset_launch_counts()
+        first = ba.normal_equations(p, huber)
+        again = ba.normal_equations(p, huber)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert cuda_ops.launch_counts["normal_eq_ordered"] == 2
+    for name, a, b in zip(first._fields, first, again):
+        assert torch.equal(a, b), name
+    _assert_neq_close(first, _neq_plain64(p, huber), ba.normal_equations_plain(p, huber))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [6, 9])
+def test_normal_eq_table_equals_rodrigues(card, width):
+    """K7's camera table (the closed form, one thread a camera) against its
+    plain version from `rodrigues` and `rodrigues_jacobian` in float64: at
+    rotations of up to pi, across its series' edge (theta^2 = 1e-2), near
+    and inside the guarded formula's small-angle branch (theta^2 < 1e-8)
+    and at zero, within 2e-6 (entries of R and dR/drvec of ~1)."""
+    from opencv_tpu_torch.geometry.rotation import rodrigues, rodrigues_jacobian
+    from opencv_tpu_torch.ops.cuda import normal_eq
+
+    g = torch.Generator(device=card)
+    g.manual_seed(width)
+    unit = torch.nn.functional.normalize(torch.randn((5000, 3), generator=g, device=card), dim=1)
+    angle = torch.cat([torch.rand(4000, generator=g, device=card) * 3.14159,
+                       10 ** torch.empty(990, device=card).uniform_(-9, -0.5, generator=g),
+                       torch.tensor([0.0999, 0.1, 0.1001, 1e-4, 1.0001e-4, 0.0], device=card),
+                       torch.full((4,), 1e-4, device=card)])
+    rvec = unit * angle[:, None]
+    C = rvec.shape[0]
+    tvec = torch.randn((C, 3), generator=g, device=card)
+    intr = torch.randn((C, 3), generator=g, device=card) if width == 9 else None
+    O = 10
+    ps = normal_eq.prepare(torch.zeros(O, dtype=torch.int64, device=card), torch.zeros(O, dtype=torch.int64, device=card),
+                           torch.zeros((O, 2), device=card), torch.ones(O, dtype=torch.bool, device=card),
+                           torch.ones((1, 3), device=card), C, width)
+    got = normal_eq.fill_table(ps, rvec, tvec, intr)
+    r64 = rvec.double()
+    want = normal_eq.camera_table(rodrigues(r64), rodrigues_jacobian(r64), tvec.double(),
+                                  None if intr is None else intr.double())
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (C, normal_eq.table_width(width))
+    assert float((got.double() - want).abs().max()) <= 2e-6
+    assert torch.equal(got[:, 9:12], tvec) and (width == 6 or torch.equal(got[:, 39:42], intr))
+
+
+def _library_products(fn):
+    """cuBLAS gemm and gemv kernels a warm call of `fn` launches, by the
+    profiler's kernel names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name.lower() for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert names, "the profiler saw no kernel"
+    return sum(1 for n in names if "gemm" in n or "gemv" in n)
+
+
+@pytest.mark.cuda
+def test_normal_eq_launches(card):
+    """A card `normal_equations` call is one K7 pass (counted by route,
+    launches and the recorder's `ba.neq.pass.*`), and launches no more
+    cuBLAS gemm or gemv than the per-camera rotation and its Jacobian
+    alone: none over the observations."""
+    import chip_smoke
+
+    from opencv_tpu_torch import convert
+    from opencv_tpu_torch.geometry.rotation import rodrigues, rodrigues_jacobian
+    from opencv_tpu_torch.optim import ba
+    from opencv_tpu_torch.utils import profiler
+
+    p = convert.ba_problem(chip_smoke.ba_scene(n_cams=300, n_pts=40_000, views=8), device=card)
+    cuda_ops.reset_launch_counts()
+    profiler.reset()
+    profiler.enable(True)
+    try:
+        ba.normal_equations(p)
+        torch.cuda.synchronize()
+        counters = profiler.counters()
+    finally:
+        profiler.enable(False)
+        profiler.reset()
+    assert cuda_ops.launch_counts["normal_eq_smem"] == 1 and counters["ba.neq.pass.smem"] == 1
+    assert not any(k.startswith("ba.neq.pass.") and k != "ba.neq.pass.smem" for k in counters)
+    per_camera = _library_products(lambda: (rodrigues(p.cam_rvec), rodrigues_jacobian(p.cam_rvec)))
+    assert _library_products(lambda: ba.normal_equations(p)) <= per_camera
+    assert _library_products(lambda: ba.normal_equations_plain(p)) > per_camera

@@ -22,7 +22,7 @@ from _torch_cpu import one_torch_thread  # noqa: F401  (autouse fixture)
 # Eight LM steps of five CG iterations from a small lambda0: some steps are
 # rejected (5 of 8 accepted through the CG solver on this scene).
 SETTINGS = dict(iters=8, cg_iters=5, lambda0=1e-8)
-PARENT = {"ba.bundle_adjust": None, "ba.step": "ba.bundle_adjust", "ba.normal_eq": "ba.step",
+PARENT = {"ba.bundle_adjust": None, "ba.cost": "ba.bundle_adjust", "ba.step": "ba.bundle_adjust", "ba.normal_eq": "ba.step",
           "ba.jac": "ba.normal_eq", "ba.schur": "ba.step", "ba.update": "ba.step", "ba.cg.wtx": "ba.schur",
           "ba.cg.wz": "ba.schur", "ba.cg.smv": "ba.schur"}
 
@@ -52,8 +52,8 @@ def test_span_counts_per_solve(problem, recorder, solver):
     for _ in range(2):
         _solve(problem, solver)
     steps = 2 * SETTINGS["iters"]
-    want = {"ba.bundle_adjust": 2, "ba.step": steps, "ba.normal_eq": steps, "ba.jac": steps, "ba.schur": steps,
-            "ba.update": steps}
+    want = {"ba.bundle_adjust": 2, "ba.cost": 2, "ba.step": steps, "ba.normal_eq": steps, "ba.jac": steps,
+            "ba.schur": steps, "ba.update": steps}
     if solver == "cg":
         # W z for the right-hand side, S p once per CG iteration, W^T x in
         # the back-substitution
@@ -132,7 +132,8 @@ def test_spans_share_the_profilers_clock(problem, recorder, tmp_path):
     events = sorted((e for e in trace["traceEvents"] if e.get("ph") == "X" and e.get("cat") == "user_annotation"
                      and e["name"] in PARENT), key=lambda e: e["ts"])
     spans = sorted(profiler.spans(), key=lambda s: s["start_ns"])
-    assert [e["name"] for e in events] == [s["name"] for s in spans] and len(spans) == 1 + 2 * (5 + 2 + 3)
+    # the root and the start's cost, then per step five spans, W z and W^T x, three S p
+    assert [e["name"] for e in events] == [s["name"] for s in spans] and len(spans) == 2 + 2 * (5 + 2 + 3)
     for e, s in zip(events, spans):
         assert abs(base_us + e["ts"] - s["start_ns"] / 1e3) < 1000.0
         assert abs(base_us + e["ts"] + e["dur"] - s["end_ns"] / 1e3) < 1000.0
